@@ -5,25 +5,34 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. build: compile every CUDA source of the package with nvcc for sm_90a, in parallel;
-  2. kernels vs plain: each kernel's wrapper against its plain PyTorch version on the
-     card, at the main path's shapes (two-scale eval: 65x129 + 81x161 logits, 19
-     classes, -> 1024x2048; batch 1 and 2; warmup's 1x1 zero operand), then a few
-     edge cases off that path;
-  3. small-input check: the whole evaluation on the card against the same model on
-     the CPU (float32, tiny fixture);
-  4. main path: full-width open-set DeepLabv2-ResNet-101 with seeded random weights,
-     two-scale ``evaluate(device="cuda")`` over 4 synthetic 2048x1024 val images; every
-     kernel's launch count is zeroed just before and read just after;
-  5. times: per-scale forward, each kernel against its plain version, its bound and a
-     library call computing the same function.
+  2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
+     (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
+     zero operand) and edge cases; the loss core's forward and backward (B2/B3) at the
+     train path's shapes (xcat 1x65x129x68 -> 512x1024, C 19 + O 15; batch 1 and 2),
+     with all labels ignored, every pixel unknown, a 37x301 output from 6x39 logits
+     and a planted anchor tie across blocks and images;
+  3. small-input checks, float32 on the card against the CPU: the whole evaluation, and
+     three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
+     inner_w_steps 3);
+  4. main paths, each with every launch count zeroed just before and read just after:
+     the two-scale ``evaluate(device="cuda")`` of a full-width open-set
+     DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; then the SimT train step
+     of ``tools/train_simt.py`` (full-width student and teacher with seeded random
+     weights, batch 1, 512x1024 synthetic batches, bf16 autocast): 2 warm-up steps,
+     then 5 timed steps with CUDA-event times of their parts;
+  5. times: per-scale forward, each kernel against its plain version, its bound and,
+     where one exists, a library call computing the same function.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
-TF32 (both allow_tf32 flags are set False); the main path's forward is bf16 autocast.
+TF32 (both allow_tf32 flags are set False); the main paths' convolutions run under bf16
+autocast.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -38,11 +47,16 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from simt_tpu_torch.config import (ModelConfig, OptimConfig, SimTConfig,  # noqa: E402
+                                   TrainConfig)
+from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_batch  # noqa: E402
 from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
+from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
-from simt_tpu_torch.ops.kernels import eval_fused  # noqa: E402
-from simt_tpu_torch.data.synthetic import make_cityscapes_fixture  # noqa: E402
+from simt_tpu_torch.ops.kernels import eval_fused, loss_fused  # noqa: E402
+from simt_tpu_torch.tools import train_simt  # noqa: E402
+from simt_tpu_torch.train import create_simt_state, make_simt_step  # noqa: E402
 
 SEED = 0
 C = 19
@@ -247,6 +261,291 @@ def phase_kernel_times(rng: np.random.Generator, launches: dict, worst: dict) ->
     }
 
 
+# ---------------------------------------------------------------------------------
+# The SimT train path: loss core kernels B2/B3, the small-step check, the main path
+# ---------------------------------------------------------------------------------
+
+O = 15
+TRAIN_HW = (512, 1024)
+TRAIN_LOGIT_HW = (65, 129)  # stride-8 map of a 512x1024 crop
+TIMED_STEPS = 5
+# Tolerances of the loss core against its plain version. Counts, anchor indices, anchor
+# maxima and presence must be equal: the plain version computes every upsampled logit,
+# softmax denominator and picked posterior with the kernel's operations in its order.
+# The sums differ in summation order only (float32 over up to 1M pixels): 1e-5
+# relative. dT sums the same terms in another order (the kernel's shared-memory float
+# atomics included): 1e-4 of max|dT|. dxcat: 1e-5 of max|dxcat|.
+TOL_SUMS, TOL_DT, TOL_DX = 1e-5, 1e-4, 1e-5
+
+
+def loss_inputs(rng: np.random.Generator, batch: int, h8: int, w8: int, hh: int,
+                ww: int):
+    dev = "cuda"
+    c, tot = C, C + O
+    xcat = torch.from_numpy((rng.standard_normal((batch, h8, w8, 2 * tot)) * 2)
+                            .astype(np.float32)).to(dev)
+    tp = torch.softmax(torch.from_numpy((rng.standard_normal((batch, h8, w8, c)) * 3)
+                                        .astype(np.float32)), -1).to(dev)
+    label = rng.integers(0, c, (batch, hh, ww)).astype(np.int32)
+    label[rng.random((batch, hh, ww)) < 0.1] = 255
+    conf = teacher_conf(tp, (hh, ww), num_classes=c, threshold_high=0.8,
+                        threshold_low=0.2)
+    t1, t2 = (torch.softmax(torch.from_numpy(rng.standard_normal((tot, c))
+                                             .astype(np.float32)), -1).to(dev)
+              for _ in range(2))
+    return xcat, torch.from_numpy(label).to(dev), conf, t1, t2
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
+    """B2/B3 against loss_core_fwd_reference / loss_core_bwd_reference on the card."""
+    h8, w8 = TRAIN_LOGIT_HW
+    hh, ww = TRAIN_HW
+    cases = {"batch1": dict(batch=1), "batch2": dict(batch=2),
+             "all_ignored": dict(batch=1, labels=255),
+             "all_unknown": dict(batch=1, conf=C),
+             "edge_37x301_from_6x39": dict(batch=2, h8=6, w8=39, hh=37, ww=301),
+             "anchor_tie_across_blocks": dict(batch=2, tie=True)}
+    worst = {"match": True, "cases": {}}
+    for name, kw in cases.items():
+        shape = dict(batch=kw["batch"], h8=kw.get("h8", h8), w8=kw.get("w8", w8),
+                     hh=kw.get("hh", hh), ww=kw.get("ww", ww))
+        xcat, label, conf, t1, t2 = loss_inputs(rng, **shape)
+        if "labels" in kw:
+            label.fill_(kw["labels"])
+        if "conf" in kw:
+            conf.fill_(kw["conf"])
+        want_idx = None
+        if kw.get("tie"):
+            # One value, larger than any other logit, at three pixels that land on the
+            # output grid exactly: image 0 row H-1 column 0, image 0's last pixel and
+            # image 1's first pixel (head 1, channel 3), in different row blocks and
+            # images. The first in global batch-major order is image 0's row H-1.
+            for bi, i, j in ((0, -1, 0), (0, -1, -1), (1, 0, 0)):
+                xcat[bi, i, j, 3] = 40.0
+            want_idx = (shape["hh"] - 1) * shape["ww"]
+        kwc = dict(num_classes=C, threshold_high=0.8)
+        got = loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc)
+        want = loss_fused.loss_core_fwd_reference(xcat, label, conf, t1, t2, **kwc)
+        g = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).cuda()
+        dgot = loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2, **kwc)
+        dwant = loss_fused.loss_core_bwd_reference(g, xcat, label, conf, t1, t2, **kwc)
+        torch.cuda.synchronize()
+        sums, sums_ref = got[0], want[0]
+        err = {
+            "sums_rel": float(((sums - sums_ref).abs()
+                               / sums_ref.abs().clamp(min=1e-30)).max()),
+            "sums_max_abs": float((sums - sums_ref).abs().max()),
+            "dt1_rel": _rel(dgot[1], dwant[1]), "dt2_rel": _rel(dgot[2], dwant[2]),
+            "dx_rel": _rel(dgot[0], dwant[0]),
+            "dx_max_abs": float((dgot[0] - dwant[0]).abs().max()),
+        }
+        exact = (torch.equal(sums[:, 1::2], sums_ref[:, 1::2])
+                 and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                 and torch.equal(got[3], want[3]))
+        ok = (exact and err["sums_rel"] <= TOL_SUMS and err["dt1_rel"] <= TOL_DT
+              and err["dt2_rel"] <= TOL_DT and err["dx_rel"] <= TOL_DX
+              and bool(torch.isfinite(dgot[0]).all()))
+        if want_idx is not None:
+            ok = ok and int(got[2][0, 3]) == want_idx and float(got[1][0, 3]) == 40.0
+        print(f"loss_core vs plain [{name}] {shape}: counts/anchor/presence "
+              f"{'equal' if exact else 'DIFFER'}, sums rel {err['sums_rel']:.3e}, "
+              f"dT1 {err['dt1_rel']:.3e}, dT2 {err['dt2_rel']:.3e}, dxcat "
+              f"{err['dx_rel']:.3e} of max: {'ok' if ok else 'MISMATCH'}")
+        worst["cases"][name] = err
+        worst["match"] = worst["match"] and ok
+    if not worst["match"]:
+        fail("loss_core kernels disagree with their plain versions")
+    return worst
+
+
+def golden_config(tmp: str) -> TrainConfig:
+    """tests/test_golden_metrics.py's geometry: C5+O3, uniform prior, 3 inner steps."""
+    c, o = 5, 3
+    cd = os.path.join(tmp, "cd_golden.npy")
+    np.save(cd, (np.ones(c) / c).astype(np.float32))
+    return TrainConfig(model=ModelConfig(num_classes=c, open_classes=o,
+                                         compute_dtype="float32"),
+                       optim=OptimConfig(num_steps=1000),
+                       simt=dataclasses.replace(SimTConfig(), class_dist=cd,
+                                                inner_w_steps=3))
+
+
+def phase_small_steps(tmp: str) -> None:
+    """Three whole SimT steps on the card against the same steps on the CPU (float32,
+    TF32 off). Tolerances: the losses rel 1e-3 / abs 1e-4 (cuDNN and the CPU sum
+    convolutions in other orders); T1/T2 after the steps atol 1e-4, 4% of one Adam
+    step at lr_T 2.5e-3."""
+    cfg = golden_config(tmp)
+    c, o = cfg.model.num_classes, cfg.model.open_classes
+    student = init_weights(ResNetMulti(c, o, True, layers=(1, 1, 1, 1),
+                                       dtype=torch.float32),
+                           torch.Generator().manual_seed(SEED))
+    teacher = init_weights(ResNetMulti(c, 0, False, layers=(1, 1, 1, 1),
+                                       dtype=torch.float32),
+                           torch.Generator().manual_seed(SEED + 1))
+    batch = synthetic_batch(1, (32, 64), c, seed=SEED)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = create_simt_state(copy.deepcopy(student), copy.deepcopy(teacher), cfg,
+                               torch.Generator().manual_seed(SEED + 2), dev)
+        step = make_simt_step(cfg)
+        losses = [{k: float(v) for k, v in step(st, batch).items()} for _ in range(3)]
+        out[dev] = (losses, st.t1.param.detach().cpu(), st.t2.param.detach().cpu())
+    ok = True
+    for i, (lc, lg) in enumerate(zip(out["cpu"][0], out["cuda"][0])):
+        for k in ("loss", "loss_seg_p", "loss_seg_y", "convex", "volume", "anchor",
+                  "place"):
+            ok = ok and math.isfinite(lg[k]) and abs(lg[k] - lc[k]) <= max(
+                1e-4, 1e-3 * abs(lc[k]))
+        print(f"small step {i}: loss cuda {lg['loss']:.6f} cpu {lc['loss']:.6f}, "
+              f"anchor {lg['anchor']:.6f}/{lc['anchor']:.6f}")
+    dt = max(float((out["cuda"][j] - out["cpu"][j]).abs().max()) for j in (1, 2))
+    ok = ok and dt <= 1e-4
+    print(f"small steps cuda vs cpu: T1/T2 max abs diff {dt:.3e} (limit 1e-4): "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the SimT step on the card disagrees with the CPU at the golden geometry")
+
+
+def phase_train_main_path(tmp: str) -> dict:
+    """The SimT step at full width through the CLI's own calls."""
+    args = train_simt.build_parser().parse_args(
+        ["--synthetic", "--preset", "simt_bapa_lr25",
+         "--num-steps-stop", str(2 + TIMED_STEPS)])
+    cfg = train_simt.build_config(args)
+    cd = os.path.join(tmp, "cd_uniform.npy")
+    np.save(cd, (np.ones(C) / C).astype(np.float32))
+    cfg = cfg.replace(simt=dataclasses.replace(cfg.simt, class_dist=cd))
+    t0 = time.perf_counter()
+    student, teacher = train_simt.build_models(cfg)
+    state = create_simt_state(student, teacher, cfg,
+                              torch.Generator().manual_seed(cfg.random_seed + 2), "cuda")
+    batches = train_simt.synthetic_batches(cfg, cfg.num_steps_stop, torch.device("cuda"))
+    step = make_simt_step(cfg)
+    torch.cuda.synchronize()
+    print(f"train set-up (models, state, {len(batches)} synthetic 512x1024 batches): "
+          f"{time.perf_counter() - t0:.1f} s")
+    # Warm-up: cuDNN plans, allocator, kernel tables.
+    metrics = [step(state, batches[i % len(batches)]) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_fused.loss_core_fwd.launches = 0
+    loss_fused.loss_core_bwd.launches = 0
+    step.spans = []
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        metrics.append(step(state, batches[(2 + i) % len(batches)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"loss_core_fwd": loss_fused.loss_core_fwd.launches,
+                "loss_core_bwd": loss_fused.loss_core_bwd.launches}
+    parts = {}
+    for name, start, end in step.spans:
+        parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
+    step.spans = None
+    for i, m in enumerate(metrics):  # the warm-up steps' lines too
+        vals = {k: float(v) for k, v in m.items()}
+        print(train_simt.format_simt_line(i, cfg.num_steps, vals)
+              + f" loss = {vals['loss']:.4f}")
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"train step {i}: non-finite metrics {vals}")
+    want = TIMED_STEPS * cfg.optim.iter_size
+    print(f"main path: SimT train step, full width, batch 1, 512x1024, bf16 autocast: "
+          f"{TIMED_STEPS} steps in {seconds:.3f} s, {TIMED_STEPS / seconds:.3f} steps/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches}")
+    print("train step parts (CUDA events, ms per step): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; sum {sum(parts.values()):.3f}, wall {seconds / TIMED_STEPS * 1e3:.3f}")
+    if launches["loss_core_fwd"] != want or launches["loss_core_bwd"] != want:
+        fail(f"loss core launched {launches} times for {want} sub-batch steps")
+    device_ms = profile_steps(step, state, batches)
+    print(f"train step device busy share: {device_ms:.3f} ms of kernels per step (profiler)"
+          f" over {seconds / TIMED_STEPS * 1e3:.3f} ms wall per step (timed run) = "
+          f"{device_ms / (seconds / TIMED_STEPS * 1e3):.3f}")
+    return {"launches": launches, "seconds": seconds, "parts": parts,
+            "device_ms": device_ms}
+
+
+def profile_steps(step, state, batches, n: int = 3) -> float:
+    """Kernel time per step from torch.profiler over ``n`` more steps, with the kernels
+    that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    # Device-side events, without the annotation spans that enclose kernels.
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"train step kernels (profiler, ms per step, {len(kernels) / n:.0f} launches per "
+          f"step, total {total:.3f}): " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    ours = {k: v for k, v in by_name.items() if "loss_fwd" in k or "loss_bwd" in k}
+    print("loss core kernels in the step (ms per step): "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ours.items()))
+    return total
+
+
+def phase_loss_kernel_times(rng: np.random.Generator, launches: dict, worst: dict) -> list:
+    """B2/B3 at the main path's shapes: the wrapper (what the step calls), the plain
+    version, the bound. No single PyTorch call computes either function: library_ms is
+    null."""
+    h8, w8 = TRAIN_LOGIT_HW
+    hh, ww = TRAIN_HW
+    xcat, label, conf, t1, t2 = loss_inputs(rng, 1, h8, w8, hh, ww)
+    g = torch.ones((2, 8), device="cuda")
+    kwc = dict(num_classes=C, threshold_high=0.8)
+    fns = {
+        "loss_core_fwd": (lambda: loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc),
+                          lambda: loss_fused.loss_core_fwd_reference(
+                              xcat, label, conf, t1, t2, **kwc)),
+        "loss_core_bwd": (lambda: loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2,
+                                                           **kwc),
+                          lambda: loss_fused.loss_core_bwd_reference(
+                              g, xcat, label, conf, t1, t2, **kwc)),
+    }
+    work = loss_fused.work(1, h8, w8, hh, ww, C, O)
+    main = worst["cases"]["batch1"]
+    entries = []
+    for name, (kernel, plain) in fns.items():
+        direction = name[-3:]
+        ms = cuda_ms(kernel, iters=50)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        nbytes, ops = work[direction]
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOP_S * 1e3
+        fwd = direction == "fwd"
+        entries.append({
+            "name": name, "route": "cuda", "source": "simt_tpu_torch/csrc/loss_fused.cu",
+            "replaces": ("experiments/pallas_alternates/loss_fused.py:184" if fwd
+                         else "experiments/pallas_alternates/loss_fused.py:348"),
+            "launches": launches[name],
+            "max_abs_err": main["sums_max_abs"] if fwd else main["dx_max_abs"],
+            "rel_err": ({"sums": main["sums_rel"]} if fwd else
+                        {"dxcat": main["dx_rel"], "dt1": main["dt1_rel"],
+                         "dt2": main["dt2_rel"]}),
+            "match": worst["match"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "shape": ("xcat 1x65x129x68 f32, label 1x512x1024 i32, conf 1x512x1024 u8, "
+                      "T 2x34x19 f32" + (" -> sums 2x8, anchors 2x34" if fwd else
+                                         " + g 2x8 -> dxcat 1x65x129x68, dT 2x34x19")),
+        })
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f}"
+              f" ms by {entries[-1]['bound_by']})")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -265,19 +564,25 @@ def main() -> int:
 
     phase_build()
     worst = phase_kernel_vs_plain(rng)
+    loss_worst = phase_loss_kernels_vs_plain(rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_small_reference(tmp)
+        phase_small_steps(tmp)
         model = deeplab_multi(C, 15, openset=True)
         init_weights(model, torch.Generator().manual_seed(SEED))
         launches, seconds = phase_main_path(tmp, model)
-    forward_ms = phase_forward_times(model)
+        forward_ms = phase_forward_times(model)
+        del model
+        torch.cuda.empty_cache()
+        train = phase_train_main_path(tmp)
     entry = phase_kernel_times(rng, launches, worst)
     device_ms = sum(forward_ms) + entry["kernel_ms"]
     print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
           f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
           f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
+    loss_entries = phase_loss_kernel_times(rng, train["launches"], loss_worst)
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, *loss_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,15 @@
-"""Constants of the evaluation protocol (counterpart of ``simt_tpu/config.py``).
+"""Configuration (counterpart of ``simt_tpu/config.py``).
 
-Only what the eval slice reads is here; the training dataclasses come with the
-training slice.
+The evaluation protocol's constants and the SimT stage's training dataclasses with
+the named presets of the published runs. All defaults are documented against the
+reference file:line they reproduce. Fields of the JAX package's config that nothing in
+the port reads yet (the model family, the warmup stage, the device mesh, the host
+pipeline and the pseudo-label lists) come with the slices that read them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Tuple
 
@@ -21,3 +25,101 @@ EVAL_SCALES: Tuple[Tuple[int, int], ...] = ((1024, 512), (1280, 640))
 EVAL_OUT_HW: Tuple[int, int] = (1024, 2048)
 
 ASSETS_DIR = os.path.join(os.path.dirname(__file__), "data", "assets")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Training input geometry (reference: dataset/*.py ctor args)."""
+
+    # (width, height), matching INPUT_SIZE_TARGET '1024,512' (trainV2_simt.py:46).
+    crop_size: Tuple[int, int] = (1024, 512)
+    mean_bgr: Tuple[float, float, float] = IMG_MEAN_BGR
+    batch_size: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The open-set DeepLabv2-ResNet-101 heads (reference: model/deeplab_multi.py)."""
+
+    num_classes: int = NUM_CLASSES  # NUM_CLASSES, trainV2_simt.py:50
+    open_classes: int = OPEN_CLASSES  # sh_simt.sh:17 (module default 15, :51)
+    # "bfloat16": convolutions under bf16 autocast, float32 parameters and head sums;
+    # "float32": everything in float32.
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """SGD/Adam + poly schedule (trainV2_simt.py:174-185, 271-280, 296-297)."""
+
+    learning_rate: float = 2.5e-4  # LEARNING_RATE trainV2_simt.py:47
+    learning_rate_t: float = 2.5e-3  # sh_simt.sh:17 uses lr_T = 10x lr (logs lr25)
+    momentum: float = 0.9  # MOMENTUM :49
+    weight_decay: float = 5e-4  # WEIGHT_DECAY :59
+    power: float = 0.9  # POWER :54
+    num_steps: int = 250_000  # NUM_STEPS :52 (schedule horizon)
+    # Gradient accumulation: sub-batches per optimizer step, each loss scaled by
+    # 1/iter_size (ITER_SIZE trainV2_simt.py:38,85-86; sub-loop :345,:426-436).
+    iter_size: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SimTConfig:
+    """SimT loss hyper-parameters (canonical set: sh_simt.sh:17)."""
+
+    threshold_high: float = 0.8  # --Threshold-high
+    threshold_low: float = 0.2  # --Threshold-low
+    lambda_seg: float = 0.1  # LAMBDA_SEG trainV2_simt.py:68
+    lambda_place: float = 0.1  # --lambda-Place
+    lambda_convex: float = 0.1  # --lambda-Convex
+    lambda_volume: float = 1.0  # --lambda-Volume
+    lambda_anchor: float = 1.0  # --lambda-Anchor
+    inner_w_steps: int = 10  # inner W-optimisation loop count (trainV2_simt.py:327)
+    # Class-distribution prior for sig_NTM (deeplab_multi.py:255): a name under
+    # data/assets/class_dist or a .npy path.
+    class_dist: str = "bapa"
+    # Output-row chunk of the plain (CPU) loss core; the math is chunk-invariant.
+    loss_chunk_rows: int = 64
+    # False (reference-verbatim): the inner W loop's T-gradients of MSE(W@T, 0) stay in
+    # T's .grad and join the T update (trainV2_simt.py:317,:337,:435). True discards
+    # them, as a zero_grad between :339 and :345 would.
+    clear_inner_t_grads: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Top-level training configuration."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    simt: SimTConfig = dataclasses.field(default_factory=SimTConfig)
+
+    num_steps: int = 250_000  # NUM_STEPS trainV2_simt.py:52
+    num_steps_stop: int = 40_000  # NUM_STEPS_STOP :53
+    random_seed: int = 1234  # RANDOM_SEED :55
+    restore_from: str = ""
+    ignore_label: int = 255
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def preset(name: str) -> TrainConfig:
+    """Named presets of the published SimT runs (the ``simt_*`` presets of
+    ``simt_tpu/config.py``):
+
+    - ``simt_bapa_lr25``: logs/BAPA_SimT_lr25.out (lr 2.5e-4 / lr_T 2.5e-3);
+    - ``simt_bapa_lr6``: sh_simt.sh:17 (lr 6e-4 / lr_T 6e-3);
+    - ``simt_sfda``: logs/SFDA_SimT.out (lr 2.5e-4 / lr_T 2.5e-3). It differs from
+      ``simt_bapa_lr25`` only in its pseudo-label list, which comes with the data slice;
+      sig_NTM reads ClassDist_bapa.npy in every run (deeplab_multi.py:255).
+    """
+    base = TrainConfig()
+    lrs = {"simt_bapa_lr25": (2.5e-4, 2.5e-3), "simt_bapa_lr6": (6e-4, 6e-3),
+           "simt_sfda": (2.5e-4, 2.5e-3)}
+    if name not in lrs:
+        raise ValueError(f"unknown preset: {name!r}")
+    lr, lr_t = lrs[name]
+    return base.replace(
+        optim=dataclasses.replace(base.optim, learning_rate=lr, learning_rate_t=lr_t))

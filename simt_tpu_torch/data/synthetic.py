@@ -86,3 +86,20 @@ def make_cityscapes_fixture(
         f.write("\n".join(val_names) + "\n")
 
     return paths
+
+
+def synthetic_batch(
+    batch_size: int = 1,
+    hw: Tuple[int, int] = (512, 1024),
+    num_classes: int = 19,
+    seed: int = 0,
+) -> dict:
+    """In-memory training batch with the training loop's layout, no files: ``image``
+    (B, H, W, 3) float32 mean-subtracted BGR, ``label`` (B, H, W) int32 with 10% of the
+    pixels 255. The same numpy draws as the JAX package's ``synthetic_batch``."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    image = rng.normal(0, 60, size=(batch_size, h, w, 3)).astype(np.float32)
+    label = rng.integers(0, num_classes, size=(batch_size, h, w)).astype(np.int32)
+    label[rng.random((batch_size, h, w)) < 0.1] = 255
+    return {"image": image, "label": label}

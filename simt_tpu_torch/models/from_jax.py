@@ -108,3 +108,33 @@ def load_matching(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> d
                          and not k.endswith("num_batches_tracked")]
     model.load_state_dict(take, strict=False)
     return report
+
+
+def simt_state_from_jax(state) -> dict:
+    """The port's pieces of a JAX ``SimTState`` (``simt_tpu/train/state.py``) whose
+    leaves are numpy arrays (``jax.tree.map(np.asarray, state)``), read by attribute:
+
+      - ``student`` / ``teacher``: state_dicts (params and batch statistics; a
+        bfloat16-stored teacher kernel comes back as float32);
+      - ``t1``, ``t2``, ``w1``, ``w2``: float32 tensors of the NTM / W parameters;
+      - ``step``: the outer step as an int.
+
+    The optimizer moments are not carried: at step 0 they are zeros, which is what
+    ``train.simt.create_simt_state`` starts from.
+    """
+    def as_f32(tree):
+        if isinstance(tree, Mapping):
+            return {k: as_f32(v) for k, v in tree.items()}
+        return np.asarray(tree, dtype=np.float32)
+
+    def variables(params, stats):
+        return state_dict_from_flax({"params": as_f32(params), "batch_stats": as_f32(stats)})
+
+    ntm = {k: torch.from_numpy(np.array(getattr(state, k).param, np.float32))
+           for k in ("t1", "t2", "w1", "w2")}
+    return {
+        "student": variables(state.model.params, state.model.batch_stats),
+        "teacher": variables(state.teacher_params, state.teacher_batch_stats),
+        **ntm,
+        "step": int(np.asarray(state.step)),
+    }

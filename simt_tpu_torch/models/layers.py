@@ -5,8 +5,9 @@ The math of the reference (model/deeplab_multi.py:57-167), in PyTorch's idiom: N
 export load with plain ``load_state_dict``. The JAX package's TPU formulations (the
 W-folded stem, the tap GEMMs, the merged-N ASPP) are plain convolutions here.
 
-BatchNorm affine parameters are frozen (``requires_grad=False``, as in the reference);
-evaluation normalises with the running statistics.
+BatchNorm affine parameters are frozen (``requires_grad=False``, as in the reference).
+Evaluation normalises with the running statistics; training with the batch statistics,
+updating the running ones as ``flax.linen.BatchNorm`` does (``BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -14,12 +15,41 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def frozen_bn(channels: int) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode update of ``running_var`` uses the
+    *biased* batch variance, as ``flax.linen.BatchNorm`` (``simt_tpu/models/layers.py:
+    47-55``) and not the unbiased one torch uses: the port is held to the JAX package.
+
+    torch's own update is ``rv = m*rv_old + (1-m)*var*N/(N-1)`` (``m = 1 - momentum``,
+    ``N = B*H*W``); rescaling its increment by ``(N-1)/N`` gives flax's
+    ``m*rv_old + (1-m)*var`` exactly, with no second pass over the activations. The
+    normalisation itself (batch statistics in training, running ones in eval) and the
+    state_dict keys are torch's.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        # torch updates a copy (autograd keeps the tensor it updated), then
+        # running_var takes the rescaled increment.
+        rv_torch = self.running_var.clone()
+        self.num_batches_tracked.add_(1)
+        out = F.batch_norm(x, self.running_mean, rv_torch, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_(keep + (rv_torch - keep) * ((n - 1) / n))
+        return out
+
+
+def frozen_bn(channels: int) -> BatchNorm2d:
     """BatchNorm matching torch defaults (momentum 0.1, eps 1e-5), affine frozen."""
-    bn = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1, affine=True)
+    bn = BatchNorm2d(channels, eps=1e-5, momentum=0.1, affine=True)
     for p in bn.parameters():
         p.requires_grad_(False)
     return bn

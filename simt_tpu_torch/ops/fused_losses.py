@@ -1,0 +1,120 @@
+"""The SimT loss block: every full-resolution loss of one step in one streamed pass
+(counterpart of ``simt_tpu/ops/fused_losses.py``).
+
+The reference evaluates its losses on logits upsampled to the 512x1024 crop
+(tools/trainV2_simt.py:370-409); done naively that keeps dozens of (B, 512, 1024, 34)
+float32 tensors and their gradients in device memory. ``simt_loss_block`` has three
+parts, as in the JAX package:
+
+  1. pass 1, no gradient: the teacher posterior upsampled (``ops/interp.py``, two
+     matmuls) and thresholded into a uint8 label map ``conf`` (argmax where the max
+     probability exceeds ``threshold_high``, class C where it is below
+     ``threshold_low``, else ignore; :354-362);
+  2. the streamed core on the concatenated logits of both heads: on a CUDA device the
+     ``SimTLossCore`` autograd node (kernels B2/B3, ``ops/kernels/loss_fused.py``); on
+     the CPU its plain version, streamed over output-row chunks each under
+     ``torch.utils.checkpoint``, differentiated by autograd;
+  3. ``_finish_losses``: masked means from the 16 (sum, count) accumulators, the
+     teacher posterior rows at the winning anchor pixels, and the anchor and
+     placeholder compositions (:374-384, :398-399).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .interp import _interp_matrix, upsample_bilinear_align_corners
+from .kernels.loss_fused import SimTLossCore, loss_core_fwd_reference
+
+
+def _finish_mean(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return torch.where(n > 0, s / torch.clamp(n, min=1.0), torch.zeros_like(s))
+
+
+def teacher_conf(teacher_prob8: torch.Tensor, out_hw, *, num_classes: int,
+                 threshold_high: float, threshold_low: float,
+                 ignore_label: int = 255) -> torch.Tensor:
+    """Pass 1: the two-threshold teacher labels (B, H, W) uint8 (trainV2_simt.py:
+    354-362) from the stride-8 teacher posterior (B, h8, w8, C)."""
+    with torch.no_grad():
+        tch = upsample_bilinear_align_corners(teacher_prob8.float(), tuple(out_hw))
+        tmax, targ = tch.max(dim=-1)
+        conf = torch.where(tmax > threshold_high, targ, torch.full_like(targ, ignore_label))
+        conf = torch.where(tmax < threshold_low, torch.full_like(targ, num_classes), conf)
+        return conf.to(torch.uint8)
+
+
+def simt_loss_block(
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    teacher_prob8: torch.Tensor,
+    label: torch.Tensor,
+    t1m: torch.Tensor,
+    t2m: torch.Tensor,
+    *,
+    num_classes: int,
+    open_classes: int,
+    threshold_high: float,
+    threshold_low: float,
+    lambda_place: float,
+    lambda_seg: float,
+    ignore_label: int = 255,
+    chunk_rows: int = 64,
+) -> Dict[str, torch.Tensor]:
+    """All full-resolution SimT losses (trainV2_simt.py:351-409) in one streamed pass.
+
+    Stride-8 NHWC inputs: ``x1``/``x2`` student logits (B, h8, w8, C+O),
+    ``teacher_prob8`` teacher softmax (B, h8, w8, C); ``label`` the full-resolution
+    pseudo label (B, H, W). Returns the scalar losses {loss_p1, loss_p2, loss_y1,
+    loss_y2, place, anchor}, differentiable in x1, x2, t1m, t2m. ``chunk_rows`` is the
+    CPU core's streaming chunk (any positive value; the math does not depend on it).
+    """
+    hh, ww = label.shape[1:]
+    xcat = torch.cat([x1.float(), x2.float()], dim=-1)
+    conf = teacher_conf(teacher_prob8, (hh, ww), num_classes=num_classes,
+                        threshold_high=threshold_high, threshold_low=threshold_low,
+                        ignore_label=ignore_label)
+    if xcat.device.type == "cuda":
+        sums, _, aidx, presence = SimTLossCore.apply(
+            xcat.contiguous(), t1m.float().contiguous(), t2m.float().contiguous(),
+            label.to(torch.int32).contiguous(), conf, num_classes,
+            float(threshold_high), int(ignore_label))
+    else:
+        sums, _, aidx, presence = loss_core_fwd_reference(
+            xcat, label, conf, t1m.float(), t2m.float(), num_classes=num_classes,
+            threshold_high=threshold_high, ignore_label=ignore_label,
+            chunk_rows=chunk_rows)
+    return _finish_losses(sums, aidx, presence, teacher_prob8.float(), t1m.float(),
+                          t2m.float(), hh=hh, ww=ww, lambda_place=lambda_place,
+                          lambda_seg=lambda_seg)
+
+
+def _finish_losses(sums, aidx, presence, teacher_prob8, t1m, t2m, *, hh, ww,
+                   lambda_place, lambda_seg) -> Dict[str, torch.Tensor]:
+    """Masked means of the (2, 8) accumulators, anchor teacher rows at the winning
+    pixels, and the anchor/place compositions (trainV2_simt.py:374-384, :398-399)."""
+    _, h8, w8, _ = teacher_prob8.shape
+    dev = teacher_prob8.device
+    a_h = torch.from_numpy(_interp_matrix(h8, hh)).to(dev)
+    a_w = torch.from_numpy(_interp_matrix(w8, ww)).to(dev)
+
+    def teacher_rows_at(glob_idx):
+        """Upsampled teacher posterior (C+O, C) at the anchor pixels: the same
+        H-then-W contraction as pass 1, evaluated only at those pixels."""
+        glob_idx = glob_idx.long()
+        bi = glob_idx // (hh * ww)
+        rem = glob_idx % (hh * ww)
+        z = torch.einsum("th,thwc->twc", a_h[rem // ww], teacher_prob8[bi])
+        return torch.einsum("tw,twc->tc", a_w[rem % ww], z)
+
+    m = [_finish_mean(sums[h, 2 * k], sums[h, 2 * k + 1]) for h in range(2)
+         for k in range(4)]
+    (loss_p1, known1, unk1, loss_y1, loss_p2, known2, unk2, loss_y2) = m
+    place = (lambda_seg * (known1 + lambda_place * unk1)
+             + known2 + lambda_place * unk2)
+    anchor = ((presence[0, :, None] * (t1m - teacher_rows_at(aidx[0])) ** 2).sum()
+              + (presence[1, :, None] * (t2m - teacher_rows_at(aidx[1])) ** 2).sum())
+    return {"loss_p1": loss_p1, "loss_p2": loss_p2, "loss_y1": loss_y1,
+            "loss_y2": loss_y2, "place": place, "anchor": anchor}

@@ -2,3 +2,5 @@
 PyTorch version. Sources live in ``simt_tpu_torch/csrc/``; ``_build`` compiles them."""
 
 from .eval_fused import multiscale_argmax_hist, multiscale_argmax_hist_reference
+from .loss_fused import (SimTLossCore, loss_core_bwd, loss_core_bwd_reference,
+                         loss_core_fwd, loss_core_fwd_reference)

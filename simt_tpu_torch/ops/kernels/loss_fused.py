@@ -1,0 +1,528 @@
+"""The SimT streamed loss core, forward and backward: CUDA kernel wrappers, their plain
+PyTorch versions and the ``torch.autograd.Function`` that joins them.
+
+Counterpart of ``experiments/pallas_alternates/loss_fused.py`` (the VMEM-resident twin
+of the ``lax.scan`` core of ``simt_tpu/ops/fused_losses.py::simt_loss_block``). Per
+output pixel of the full-resolution (B, H, W) label map the core
+
+  - upsamples the concatenated stride-8 logits ``xcat`` (B, h8, w8, 2*(C+O)) of both
+    heads (align-corners bilinear, H then W, two taps each);
+  - refines the teacher label ``conf`` with **head 2's** argmax (unknown pixels, class
+    C, take head 2's open-set argmax, else ignore; trainV2_simt.py:387-393);
+  - per head: CE against the refined label; the placeholder's known CE (argmax label
+    where it is a known class and the softmax max 1/den exceeds ``threshold_high``) and
+    unknown CE (argmax channel set to 0, label the argmax over the open channels with
+    the known channels at 0); the noisy posterior -log((T^T softmax)[label]);
+  - per head: the running per-channel maximum of the logits with the first (global,
+    batch-major flat) index holding it, and the presence of each channel as an argmax.
+
+Outputs: ``sums`` (2, 8) float32, per head (ce_s, ce_n, known_s, known_n, unk_s,
+unk_n, y_s, y_n); anchor maxima (2, C+O) float32, anchor indices (2, C+O) int32 and
+presence (2, C+O) float32, which take no gradient. The backward takes the cotangents
+of ``sums`` and returns ``dxcat``, ``dT1``, ``dT2``.
+
+``loss_core_fwd`` / ``loss_core_bwd`` dispatch on the tensors' device: on the CPU they
+run ``loss_core_fwd_reference`` / ``loss_core_bwd_reference``; on a CUDA device they
+launch the kernel of ``csrc/loss_fused.cu`` (and add one to their ``launches``) or
+raise. They never fall back.
+
+The plain forward computes each upsampled logit, softmax denominator and picked
+posterior with the kernel's own operations in the kernel's order (the two taps as a
+rounded product sum, channel sums in ascending order), so on the card the two agree
+exactly in every count, argmax, anchor maximum and anchor index, and up to summation
+order in the sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..interp import interp_taps
+from . import _build
+
+# C+O values the kernel is compiled for (its per-pixel logits live in registers).
+SUPPORTED_TOTALS = (6, 8, 34)
+
+
+# --------------------------------------------------------------------------------------
+# Tap tables shared by the plain versions and the kernels
+# --------------------------------------------------------------------------------------
+
+
+def _taps(h8: int, w8: int, hh: int, ww: int, device) -> dict:
+    """The two taps of every output row and column as tensors on ``device``."""
+    lo_h, hi_h, w0_h, w1_h = interp_taps(h8, hh)
+    lo_w, hi_w, w0_w, w1_w = interp_taps(w8, ww)
+    as_t = functools.partial(torch.tensor, device=device)  # a copy: the taps are read-only
+    return {"lo_h": as_t(lo_h).long(), "hi_h": as_t(hi_h).long(), "w0_h": as_t(w0_h),
+            "w1_h": as_t(w1_h), "lo_w": as_t(lo_w).long(), "hi_w": as_t(hi_w).long(),
+            "w0_w": as_t(w0_w), "w1_w": as_t(w1_w)}
+
+
+def _source_ranges(lo: np.ndarray, hi: np.ndarray, n_src: int) -> Tuple[np.ndarray,
+                                                                        np.ndarray]:
+    """For each source index j, the half-open range of output indices whose lo or hi
+    tap is j (contiguous: both taps are non-decreasing). Empty ranges are (0, 0)."""
+    begin = np.zeros(n_src, np.int64)
+    end = np.zeros(n_src, np.int64)
+    for j in range(n_src):
+        hit = np.nonzero((lo == j) | (hi == j))[0]
+        if hit.size:
+            begin[j], end[j] = hit[0], hit[-1] + 1
+    return begin, end
+
+
+@functools.lru_cache(maxsize=16)
+def device_tables(h8: int, w8: int, hh: int, ww: int,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' tables on ``device``: int32 [lo_h(H), hi_h(H), lo_w(W), hi_w(W),
+    col_begin(w8), col_end(w8), row_begin(h8), row_end(h8)] and float32 [w0_h(H),
+    w1_h(H), w0_w(W), w1_w(W)]."""
+    lo_h, hi_h, w0_h, w1_h = interp_taps(h8, hh)
+    lo_w, hi_w, w0_w, w1_w = interp_taps(w8, ww)
+    cb, ce = _source_ranges(lo_w, hi_w, w8)
+    rb, re = _source_ranges(lo_h, hi_h, h8)
+    ints = np.concatenate([lo_h, hi_h, lo_w, hi_w, cb, ce, rb, re]).astype(np.int32)
+    floats = np.concatenate([w0_h, w1_h, w0_w, w1_w]).astype(np.float32)
+    return torch.from_numpy(ints).to(device), torch.from_numpy(floats).to(device)
+
+
+def _upsample_rows(xcat: torch.Tensor, taps: dict, r0: int, r1: int) -> torch.Tensor:
+    """Output rows [r0, r1) of the upsampled ``xcat``: (B, rows, W, cat), each value
+    w0*x0 + w1*x1 along H, then along W, as the kernel computes it."""
+    rows = slice(r0, r1)
+    z = (taps["w0_h"][rows, None, None] * xcat[:, taps["lo_h"][rows]]
+         + taps["w1_h"][rows, None, None] * xcat[:, taps["hi_h"][rows]])
+    return (taps["w0_w"][:, None] * z[:, :, taps["lo_w"]]
+            + taps["w1_w"][:, None] * z[:, :, taps["hi_w"]])
+
+
+def _row_chunks(hh: int, chunk_rows: int):
+    """(r0, r1) of consecutive chunks of ``chunk_rows`` output rows; the last may be
+    shorter."""
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    return [(r0, min(r0 + chunk_rows, hh)) for r0 in range(0, hh, chunk_rows)]
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in ascending order, one rounded add at a time (the
+    kernel's order)."""
+    s = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx] where 0 <= idx < x.shape[-1], else 0 (a one-hot gather)."""
+    inside = (idx >= 0) & (idx < x.shape[-1])
+    safe = torch.where(inside, idx, torch.zeros_like(idx))
+    got = torch.gather(x, -1, safe[..., None])[..., 0]
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
+def _head(p: torch.Tensor, pseudo: torch.Tensor, refined: torch.Tensor,
+          label: torch.Tensor, t: torch.Tensor, c: int, threshold_high: float,
+          ignore: int) -> dict:
+    """Per-pixel quantities of one head on (B, rows, W, C+O) logits ``p``."""
+    total = p.shape[-1]
+    ch = torch.arange(total, device=p.device)
+    mx = p.amax(dim=-1)
+    e = torch.exp(p - mx[..., None])
+    den = _seq_sum(e)
+    lz = mx + torch.log(den)
+    sm = e / den[..., None]
+    ignore_t = torch.full_like(pseudo, ignore)
+
+    pred_max = 1.0 / den
+    known = torch.where((pseudo < c) & (pred_max > threshold_high), pseudo, ignore_t)
+    onehot_arg = ch == pseudo[..., None]
+    predict = torch.where(onehot_arg, torch.zeros_like(p), p)
+    predict_open = torch.where(ch >= c, predict, torch.zeros_like(p))
+    place_y = torch.argmax(predict_open, dim=-1)
+    place_y = torch.where(known == ignore, ignore_t, place_y)
+    mxu = predict.amax(dim=-1)
+    eu = torch.exp(predict - mxu[..., None])
+    denu = _seq_sum(eu)
+    lzu = mxu + torch.log(denu)
+
+    valid_y = _valid(label, ignore)
+    has_y = valid_y & (label < c)
+    ysafe = torch.where(has_y, label, torch.zeros_like(label)).long()
+    tcol = t.T[ysafe]  # (B, rows, W, C+O): T[k, y] per pixel
+    picked = _seq_sum(tcol * sm)
+    picked = torch.where(has_y, picked, torch.zeros_like(picked))
+    return {"p": p, "lz": lz, "sm": sm, "refined": refined, "known": known,
+            "onehot_arg": onehot_arg, "predict": predict, "place_y": place_y,
+            "lzu": lzu, "eu": eu, "denu": denu, "valid_y": valid_y, "has_y": has_y,
+            "ysafe": ysafe, "tcol": tcol, "picked": picked}
+
+
+def _valid(lbl: torch.Tensor, ignore: int) -> torch.Tensor:
+    return (lbl >= 0) & (lbl != ignore)
+
+
+def _head_sums(h: dict, ignore: int) -> torch.Tensor:
+    """The eight (sum, count) accumulators of one head over its pixels."""
+    out = []
+    for lbl, logits, lz in ((h["refined"], h["p"], h["lz"]),
+                            (h["known"], h["p"], h["lz"]),
+                            (h["place_y"], h["predict"], h["lzu"])):
+        v = _valid(lbl, ignore)
+        nll = lz - _pick(logits, lbl.long())
+        out += [torch.where(v, nll, torch.zeros_like(nll)).sum(), v.float().sum()]
+    y = torch.where(h["valid_y"], -torch.log(h["picked"]), torch.zeros_like(h["picked"]))
+    out += [y.sum(), h["valid_y"].float().sum()]
+    return torch.stack(out)
+
+
+def _refine(conf: torch.Tensor, pseudo2: torch.Tensor, c: int, ignore: int):
+    """Class-posterior refinement (trainV2_simt.py:387-393), with head 2's argmax."""
+    conf = conf.long()
+    unk = conf == c
+    p1_ = torch.where(unk, pseudo2, torch.zeros_like(pseudo2))
+    p1_ = torch.where(p1_ >= c, p1_, torch.full_like(p1_, ignore))
+    return torch.where(unk, p1_, conf)
+
+
+def _chunk_forward(xcat, t1, t2, label_c, conf_c, taps, r0, r1, c, threshold_high,
+                   ignore):
+    """Sums (2, 8) and per-image anchor candidates of output rows [r0, r1)."""
+    total = t1.shape[0]
+    z = _upsample_rows(xcat, taps, r0, r1)
+    p1, p2 = z[..., :total], z[..., total:]
+    pseudo1 = torch.argmax(p1, dim=-1)
+    pseudo2 = torch.argmax(p2, dim=-1)
+    refined = _refine(conf_c, pseudo2, c, ignore)
+    sums, cand = [], []
+    for p, pseudo, t in ((p1, pseudo1, t1), (p2, pseudo2, t2)):
+        h = _head(p, pseudo, refined, label_c, t, c, threshold_high, ignore)
+        sums.append(_head_sums(h, ignore))
+        flat = p.detach().reshape(p.shape[0], -1, total)  # (B, rows*W, C+O)
+        present = torch.zeros(total, device=p.device)
+        present[pseudo.reshape(-1)] = 1.0
+        cand.append((flat.amax(dim=1), torch.argmax(flat, dim=1), present))
+    return torch.stack(sums), cand
+
+
+def loss_core_fwd_reference(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
+                            t1: torch.Tensor, t2: torch.Tensor, *, num_classes: int,
+                            threshold_high: float, ignore_label: int = 255,
+                            chunk_rows: int = 64):
+    """Plain version of the forward kernel, differentiable in ``xcat``, ``t1``, ``t2``.
+
+    Streams over chunks of ``chunk_rows`` output rows (any positive value; the last
+    chunk may be shorter), each under ``torch.utils.checkpoint`` so that autograd keeps
+    no full-resolution intermediate, like the JAX package's checkpointed ``lax.scan``.
+    The anchor carry keeps, per image, the strict-'>' running maximum over chunks in
+    row order, then combines the images in batch order: the first occurrence in
+    global batch-major flat order. Returns (sums, amax, aidx, presence).
+    """
+    b, h8, w8, _ = xcat.shape
+    hh, ww = label.shape[1:]
+    total = t1.shape[0]
+    taps = _taps(h8, w8, hh, ww, xcat.device)
+    xcat = xcat.float()
+    sums = torch.zeros((2, 8), dtype=torch.float32, device=xcat.device)
+    amax = torch.full((2, b, total), -float("inf"), device=xcat.device)
+    aidx = torch.zeros((2, b, total), dtype=torch.long, device=xcat.device)
+    presence = torch.zeros((2, total), device=xcat.device)
+    for r0, r1 in _row_chunks(hh, chunk_rows):
+        s, cand = checkpoint(
+            _chunk_forward, xcat, t1, t2, label[:, r0:r1], conf[:, r0:r1], taps, r0, r1,
+            num_classes, threshold_high, ignore_label, use_reentrant=False)
+        sums = sums + s
+        for hd, (m, i, ex) in enumerate(cand):
+            better = m > amax[hd]
+            amax[hd] = torch.where(better, m, amax[hd])
+            aidx[hd] = torch.where(better, i + r0 * ww, aidx[hd])
+            presence[hd] = torch.maximum(presence[hd], ex)
+    out_max = torch.full((2, total), -float("inf"), device=xcat.device)
+    out_idx = torch.zeros((2, total), dtype=torch.long, device=xcat.device)
+    for bi in range(b):  # batch-major: an earlier image keeps a tie
+        better = amax[:, bi] > out_max
+        out_max = torch.where(better, amax[:, bi], out_max)
+        out_idx = torch.where(better, aidx[:, bi] + bi * hh * ww, out_idx)
+    return sums, out_max, out_idx.to(torch.int32), presence
+
+
+def _head_grad(h: dict, g: torch.Tensor, ignore: int):
+    """d(sum . g)/dp (B, rows, W, C+O) and the per-pixel noisy-posterior factor
+    ``sm * dq`` for dT, for one head: the formulas of ``_bwd_kernel`` (loss_fused.py
+    :383-471) as tensor code."""
+    p, sm = h["p"], h["sm"]
+    ch = torch.arange(p.shape[-1], device=p.device)
+
+    def ce_grad(soft, lbl):
+        oh = (ch == lbl[..., None]).float()
+        return (soft - oh) * _valid(lbl, ignore)[..., None].float()
+
+    d = g[0] * ce_grad(sm, h["refined"]) + g[2] * ce_grad(sm, h["known"])
+    smu = h["eu"] / h["denu"][..., None]
+    d_unk = g[4] * ce_grad(smu, h["place_y"])
+    d = d + torch.where(h["onehot_arg"], torch.zeros_like(d_unk), d_unk)
+    # A valid label >= C picks no column of q: it adds inf to the loss and nothing here.
+    inv = torch.where(h["has_y"], 1.0 / h["picked"], torch.zeros_like(h["picked"]))
+    dq = -g[6] * inv
+    dsm = h["tcol"] * dq[..., None]
+    d = d + sm * (dsm - (dsm * sm).sum(dim=-1, keepdim=True))
+    return d, sm * dq[..., None]
+
+
+def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
+                            label: torch.Tensor, conf: torch.Tensor, t1: torch.Tensor,
+                            t2: torch.Tensor, *, num_classes: int, threshold_high: float,
+                            ignore_label: int = 255, chunk_rows: int = 64):
+    """Plain version of the backward kernel: (dxcat, dT1, dT2) for the cotangent
+    ``g_sums`` (2, 8) of the sums (the counts' entries are ignored: counts are
+    piecewise constant). Recomputes each chunk's forward, forms the per-pixel
+    cotangents by hand and applies the transposed upsample."""
+    b, h8, w8, cat = xcat.shape
+    hh, ww = label.shape[1:]
+    total = t1.shape[0]
+    c = num_classes
+    taps = _taps(h8, w8, hh, ww, xcat.device)
+    xcat = xcat.float()
+    g_sums = g_sums.float()
+    dx = torch.zeros_like(xcat)
+    dts = [torch.zeros((total, c), dtype=torch.float32, device=xcat.device)
+           for _ in range(2)]
+    with torch.no_grad():
+        for r0, r1 in _row_chunks(hh, chunk_rows):
+            z = _upsample_rows(xcat, taps, r0, r1)
+            p1, p2 = z[..., :total], z[..., total:]
+            pseudo2 = torch.argmax(p2, dim=-1)
+            refined = _refine(conf[:, r0:r1], pseudo2, c, ignore_label)
+            dps = []
+            for hd, (p, t) in enumerate(((p1, t1), (p2, t2))):
+                h = _head(p, torch.argmax(p, dim=-1), refined, label[:, r0:r1],
+                          t.float(), c, threshold_high, ignore_label)
+                d, smdq = _head_grad(h, g_sums[hd], ignore_label)
+                dps.append(d)
+                # dT[k, y] += sm[k] * dq at each valid pixel's label column y < C.
+                keep = h["has_y"].reshape(-1)
+                dts[hd].T.index_add_(0, h["ysafe"].reshape(-1)[keep],
+                                     smdq.reshape(-1, total)[keep])
+            dz_out = torch.cat(dps, dim=-1)  # (B, rows, W, cat)
+            dz = torch.zeros((b, r1 - r0, w8, cat), dtype=torch.float32,
+                             device=xcat.device)
+            dz.index_add_(2, taps["lo_w"], taps["w0_w"][:, None] * dz_out)
+            dz.index_add_(2, taps["hi_w"], taps["w1_w"][:, None] * dz_out)
+            rows = slice(r0, r1)
+            dx.index_add_(1, taps["lo_h"][rows], taps["w0_h"][rows, None, None] * dz)
+            dx.index_add_(1, taps["hi_h"][rows], taps["w1_h"][rows, None, None] * dz)
+    return dx, dts[0], dts[1]
+
+
+# --------------------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------------------
+
+
+def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
+                  t1: torch.Tensor, t2: torch.Tensor, *, num_classes: int,
+                  threshold_high: float, ignore_label: int = 255, chunk_rows: int = 64):
+    """Forward of the core: (sums (2, 8), amax (2, C+O), aidx (2, C+O) int32,
+    presence (2, C+O)). ``xcat`` (B, h8, w8, 2*(C+O)) float32, ``label`` (B, H, W),
+    ``conf`` (B, H, W) uint8 teacher labels, ``t1``/``t2`` (C+O, C) float32.
+
+    CPU tensors: the plain version (``chunk_rows`` is its streaming chunk). CUDA
+    tensors: one launch of kernel B2 (``csrc/loss_fused.cu``), or an exception.
+    """
+    _check(xcat, label, conf, t1, t2, num_classes)
+    if xcat.device.type == "cpu":
+        return loss_core_fwd_reference(
+            xcat, label, conf, t1, t2, num_classes=num_classes,
+            threshold_high=threshold_high, ignore_label=ignore_label,
+            chunk_rows=chunk_rows)
+    b, h8, w8, cat = xcat.shape
+    hh, ww = label.shape[1:]
+    total = cat // 2
+    dev = xcat.device
+    taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
+    partials = torch.empty((b * hh, 16), dtype=torch.float32, device=dev)
+    keys = torch.zeros((2 * total,), dtype=torch.int64, device=dev)
+    present_i = torch.zeros((2 * total,), dtype=torch.int32, device=dev)
+    sums = torch.empty((2, 8), dtype=torch.float32, device=dev)
+    amax = torch.empty((2, total), dtype=torch.float32, device=dev)
+    aidx = torch.empty((2, total), dtype=torch.int32, device=dev)
+    presence = torch.empty((2, total), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.simt_loss_core_fwd(
+        xcat.data_ptr(), label.data_ptr(), conf.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+        taps_i.data_ptr(), taps_f.data_ptr(), partials.data_ptr(), keys.data_ptr(),
+        present_i.data_ptr(), sums.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
+        presence.data_ptr(), b, h8, w8, hh, ww, num_classes, total,
+        float(threshold_high), int(ignore_label), _stream(dev))
+    _raise_on(lib, err, "loss_core_fwd")
+    loss_core_fwd.launches += 1
+    return sums, amax, aidx, presence
+
+
+loss_core_fwd.launches = 0
+
+
+def loss_core_bwd(g_sums: torch.Tensor, xcat: torch.Tensor, label: torch.Tensor,
+                  conf: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, *,
+                  num_classes: int, threshold_high: float, ignore_label: int = 255,
+                  chunk_rows: int = 64):
+    """Backward of the core: (dxcat, dT1, dT2) for the cotangent ``g_sums`` (2, 8) of
+    the sums. Arguments as ``loss_core_fwd``. CPU tensors: the plain version; CUDA
+    tensors: one launch of kernel B3, or an exception."""
+    _check(xcat, label, conf, t1, t2, num_classes)
+    if g_sums.shape != (2, 8):
+        raise ValueError(f"g_sums must be (2, 8), got {tuple(g_sums.shape)}")
+    if xcat.device.type == "cpu":
+        return loss_core_bwd_reference(
+            g_sums, xcat, label, conf, t1, t2, num_classes=num_classes,
+            threshold_high=threshold_high, ignore_label=ignore_label,
+            chunk_rows=chunk_rows)
+    b, h8, w8, cat = xcat.shape
+    hh, ww = label.shape[1:]
+    total = cat // 2
+    dev = xcat.device
+    taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
+    g = g_sums.detach().to(device=dev, dtype=torch.float32).contiguous()
+    dz_rows = torch.empty((b, hh, w8, cat), dtype=torch.float32, device=dev)
+    dt_part = torch.empty((b * hh, 2, total, num_classes), dtype=torch.float32,
+                          device=dev)
+    dx = torch.empty_like(xcat)
+    dt = torch.empty((2, total, num_classes), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.simt_loss_core_bwd(
+        g.data_ptr(), xcat.data_ptr(), label.data_ptr(), conf.data_ptr(), t1.data_ptr(),
+        t2.data_ptr(), taps_i.data_ptr(), taps_f.data_ptr(), dz_rows.data_ptr(),
+        dt_part.data_ptr(), dx.data_ptr(), dt.data_ptr(), b, h8, w8, hh, ww,
+        num_classes, total, float(threshold_high), int(ignore_label), _stream(dev))
+    _raise_on(lib, err, "loss_core_bwd")
+    loss_core_bwd.launches += 1
+    return dx, dt[0], dt[1]
+
+
+loss_core_bwd.launches = 0
+
+
+class SimTLossCore(torch.autograd.Function):
+    """The streamed core behind one autograd node: forward ``loss_core_fwd``,
+    backward ``loss_core_bwd`` (each the kernel on CUDA tensors, the plain version on
+    CPU tensors). Differentiable in ``xcat``, ``t1``, ``t2``; the anchor carries take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, xcat, t1, t2, label, conf, num_classes, threshold_high,
+                ignore_label):
+        out = loss_core_fwd(xcat, label, conf, t1, t2, num_classes=num_classes,
+                            threshold_high=threshold_high, ignore_label=ignore_label)
+        ctx.save_for_backward(xcat, t1, t2, label, conf)
+        ctx.args = (num_classes, threshold_high, ignore_label)
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_sums, *_):
+        xcat, t1, t2, label, conf = ctx.saved_tensors
+        num_classes, threshold_high, ignore_label = ctx.args
+        dx, dt1, dt2 = loss_core_bwd(g_sums, xcat, label, conf, t1, t2,
+                                     num_classes=num_classes,
+                                     threshold_high=threshold_high,
+                                     ignore_label=ignore_label)
+        return dx, dt1, dt2, None, None, None, None, None
+
+
+# Per-pixel operation counts of the kernels' cost model (csrc/loss_fused.cu): the
+# W taps of both heads (3 per channel); per head in the forward max, subtract, exp,
+# add and divide for the softmax (5), the same four for the placeholder's suppressed
+# logits (4), two for the picked posterior and three argmax compares (14 per channel);
+# in the backward the forward's 9 plus the suppressed softmax again (3), the four
+# cotangent terms (12), the posterior and dT products (5): 29 per channel; the
+# transposed W taps (2 per channel per tap) and the H taps and their transpose per
+# source column (3 and 4 per channel per output row).
+_FWD_PER_PIXEL_CH = 3 * 2 + 14 * 2  # per head channel, both heads
+_BWD_PER_PIXEL_CH = 3 * 2 + 29 * 2 + 4 * 2
+
+
+def work(batch: int, h8: int, w8: int, hh: int, ww: int, num_classes: int,
+         open_classes: int) -> dict:
+    """Bytes and float32 operations each kernel needs for one call at these shapes:
+    each input read once and each output written once (xcat f32, label int32, conf
+    uint8, both T; the forward's 64 output floats, the backward's dxcat and dT), and
+    the operations of the kernels' cost model above. Returns {"fwd": (bytes, ops),
+    "bwd": (bytes, ops)}."""
+    total = num_classes + open_classes
+    cat = 2 * total
+    pixels = batch * hh * ww
+    x_bytes = batch * h8 * w8 * cat * 4
+    t_bytes = 2 * total * num_classes * 4
+    in_bytes = x_bytes + pixels * (4 + 1) + t_bytes
+    fwd_bytes = in_bytes + (16 + 3 * 2 * total) * 4
+    bwd_bytes = in_bytes + 16 * 4 + x_bytes + t_bytes
+    h_step = batch * hh * w8 * cat * 3
+    fwd_ops = pixels * total * _FWD_PER_PIXEL_CH + h_step
+    bwd_ops = pixels * total * _BWD_PER_PIXEL_CH + h_step + batch * hh * w8 * cat * 4
+    return {"fwd": (fwd_bytes, fwd_ops), "bwd": (bwd_bytes, bwd_ops)}
+
+
+def _check(xcat, label, conf, t1, t2, num_classes) -> None:
+    if xcat.dim() != 4 or label.dim() != 3 or conf.shape != label.shape:
+        raise ValueError(
+            f"expected (B,h8,w8,2*(C+O)) xcat, (B,H,W) label and conf, got "
+            f"{tuple(xcat.shape)}, {tuple(label.shape)}, {tuple(conf.shape)}")
+    total = t1.shape[0]
+    if (xcat.shape[-1] != 2 * total or t1.shape != (total, num_classes)
+            or t2.shape != t1.shape):
+        raise ValueError(f"xcat channels {xcat.shape[-1]} and T shapes "
+                         f"{tuple(t1.shape)}/{tuple(t2.shape)} do not match "
+                         f"C={num_classes}")
+    if xcat.shape[0] != label.shape[0]:
+        raise ValueError("xcat and label batch sizes differ")
+    devices = {xcat.device, label.device, conf.device, t1.device, t2.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs must be on one device, got {devices}")
+    if xcat.device.type == "cpu":
+        return
+    if xcat.device.type != "cuda":
+        raise ValueError(f"unsupported device {xcat.device} (expected cpu or cuda)")
+    if total not in SUPPORTED_TOTALS:
+        raise ValueError(f"C+O={total} is not compiled into the kernel "
+                         f"(supported: {SUPPORTED_TOTALS})")
+    if not (xcat.dtype == t1.dtype == t2.dtype == torch.float32):
+        raise TypeError("CUDA kernel takes float32 xcat and T")
+    if label.dtype != torch.int32 or conf.dtype != torch.uint8:
+        raise TypeError(f"CUDA kernel takes int32 label and uint8 conf, got "
+                        f"{label.dtype}/{conf.dtype}")
+    if not all(t.is_contiguous() for t in (xcat, label, conf, t1, t2)):
+        raise ValueError("CUDA kernel takes contiguous tensors")
+    b, hh, ww = label.shape
+    if b * hh * ww >= 2**31 or b > 65535 or hh > 65535:
+        raise ValueError("batch x H x W must stay below 2**31 (int32 anchor indices), "
+                         "batch and H below 65536 (the grid)")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.simt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("loss_fused")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.simt_loss_core_fwd.argtypes = [p] * 14 + [i] * 7 + [f, i, p]
+    lib.simt_loss_core_fwd.restype = i
+    lib.simt_loss_core_bwd.argtypes = [p] * 12 + [i] * 7 + [f, i, p]
+    lib.simt_loss_core_bwd.restype = i
+    lib.simt_cuda_error_string.argtypes = [i]
+    lib.simt_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,212 @@
+"""SimT-stage trainer, stage 2 (counterpart of ``simt_tpu/train/simt.py``).
+
+One call of the step does what the reference does per iteration
+(tools/trainV2_simt.py:307-436):
+
+  - the inner loop of ``inner_w_steps`` Adam steps on W1/W2 against
+    MSE(W @ T, 0) (:327-339). T's ``.grad`` is cleared once per *outer* iteration
+    (:317) and never inside the loop, so the inner T-gradients accumulate and join the
+    main loss's in the T update (:435), as in the reference and the JAX package;
+    ``clear_inner_t_grads`` discards them;
+  - the frozen teacher (eval mode, ``no_grad``) and its stride-8 softmax of head 2;
+  - the student forward in train mode and ``simt_loss_block`` (anchor, class-posterior
+    CE, placeholder, noisy posterior; :370-409), the convex loss (:412-415), the
+    guarded volume loss (:417-421) and the composite (:423-424);
+  - ``iter_size`` sub-batches, each loss scaled by 1/iter_size (:345, :426-436), with
+    the reference's metric conventions;
+  - one SGD step for the model and one Adam step each for T1 and T2.
+
+The step never waits for the card: no ``.item()``, no branch on a tensor; the learning
+rate comes from the host-side step count and the metrics come back as 0-d tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..data.pipeline import normalize_image
+from ..models import ntm as ntm_lib
+from ..ops.fused_losses import simt_loss_block
+from ..ops.losses import mse_sum, volume_loss
+from ..ops.schedules import poly_lr
+from .state import NTMState, SimTState, make_adam, make_model_optimizer
+
+
+def create_simt_state(model: nn.Module, teacher: nn.Module, cfg,
+                      generator: torch.Generator,
+                      device: torch.device = torch.device("cuda")) -> SimTState:
+    """The SimT train state (trainV2_simt.py:250-280): the models on ``device`` (in
+    ``channels_last`` on a card), the teacher frozen in eval mode, T1/T2 drawn from
+    ``generator`` on the CPU, W1/W2 at their constant init, fresh optimizers."""
+    device = torch.device(device)
+    fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    model.to(device=device, memory_format=fmt).train()
+    teacher.to(device=device, memory_format=fmt).eval()
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    c, o = cfg.model.num_classes, cfg.model.open_classes
+
+    def ntm_state(init: torch.Tensor) -> NTMState:
+        param = nn.Parameter(init.to(device))
+        return NTMState(param, make_adam(param))
+
+    t1 = ntm_state(ntm_lib.ntm_init(generator, c, o))
+    t2 = ntm_state(ntm_lib.ntm_init(generator, c, o))
+    return SimTState(
+        model=model,
+        model_opt=make_model_optimizer(model, cfg.optim.momentum,
+                                       cfg.optim.weight_decay),
+        teacher=teacher,
+        t1=t1, t2=t2,
+        w1=ntm_state(ntm_lib.w_init(c, o)), w2=ntm_state(ntm_lib.w_init(c, o)),
+        class_dist=torch.from_numpy(ntm_lib.load_class_dist(cfg.simt.class_dist)).to(device),
+    )
+
+
+def _sq(a: torch.Tensor) -> torch.Tensor:
+    """``MSELoss(reduction='sum')(a, 0)`` (trainV2_simt.py:305, :337, :412-415)."""
+    return mse_sum(a, torch.zeros_like(a))
+
+
+def _guarded_volume(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """Volume loss with the reference's non-finite -> 0 guard on the SUM of both heads
+    (trainV2_simt.py:417-421: one non-finite head zeroes both), in the double-where
+    form so that a singular Gram matrix cannot put NaN into the gradients."""
+    raw = volume_loss(t1.detach()) + volume_loss(t2.detach())
+    ok = torch.isfinite(raw)
+    safe = torch.zeros_like(t1)
+    safe[: t1.shape[1]] = torch.eye(t1.shape[1], dtype=t1.dtype, device=t1.device)
+    vol = volume_loss(torch.where(ok, t1, safe)) + volume_loss(torch.where(ok, t2, safe))
+    return torch.where(ok, vol, torch.zeros_like(vol))
+
+
+# Metrics that accumulate at 1/iter_size (trainV2_simt.py:429-432); the others are the
+# last sub-batch's unscaled values (:438-441 reads the loop variables).
+_ACCUM = ("loss", "loss_seg_p", "loss_seg_y")
+
+
+class SimTStep:
+    """The SimT train step: ``step(state, batch) -> metrics``, updating ``state`` in
+    place. ``batch``: ``image`` (B, H, W, 3) mean-subtracted BGR float32 (or uint8) and
+    ``label`` (B, H, W) integer, with a leading ``iter_size`` axis when
+    ``iter_size > 1``; numpy arrays or tensors.
+
+    ``spans``: None (default) or a list to which each call appends ``(name, start,
+    end)`` CUDA events around its parts (inner_w, teacher, student_forward, backward,
+    optimizer); read them after a synchronize.
+    """
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        if self.spans is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.spans.append((name, start, end))
+
+    def __call__(self, st: SimTState, batch: Dict) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        s = cfg.simt
+        c, o = cfg.model.num_classes, cfg.model.open_classes
+        dev = st.t1.param.device
+        lr = poly_lr(cfg.optim.learning_rate, st.step, cfg.optim.num_steps, cfg.optim.power)
+        lr_t = poly_lr(cfg.optim.learning_rate_t, st.step, cfg.optim.num_steps,
+                       cfg.optim.power)
+        for group in st.model_opt.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+        for n in (st.t1, st.t2, st.w1, st.w2):
+            n.opt.param_groups[0]["lr"] = lr_t
+
+        def ntm(p):
+            return ntm_lib.ntm_forward(p, st.class_dist, c, o)
+
+        # ------- inner loop: W1/W2 against the current T1/T2 (:327-339) -------
+        with self._span("inner_w"):
+            st.t1.param.grad = None  # optimizer_t.zero_grad(), once per iteration (:317)
+            st.t2.param.grad = None
+            for _ in range(s.inner_w_steps):
+                st.w1.param.grad = None
+                st.w2.param.grad = None
+                w_obj = (_sq(ntm_lib.w_forward(st.w1.param) @ ntm(st.t1.param))
+                         + _sq(ntm_lib.w_forward(st.w2.param) @ ntm(st.t2.param)))
+                w_obj.backward()  # the T grads accumulate (:337)
+                st.w1.opt.step()
+                st.w2.opt.step()
+            if s.clear_inner_t_grads:
+                st.t1.param.grad = None
+                st.t2.param.grad = None
+            with torch.no_grad():
+                w1_mat = ntm_lib.w_forward(st.w1.param)
+                w2_mat = ntm_lib.w_forward(st.w2.param)
+
+        st.model_opt.zero_grad(set_to_none=True)
+        iter_size = cfg.optim.iter_size
+        metrics: Dict[str, torch.Tensor] = {}
+        for i in range(iter_size):
+            sub = batch if iter_size == 1 else {k: v[i] for k, v in batch.items()}
+            image = normalize_image(torch.as_tensor(sub["image"], device=dev),
+                                    cfg.data.mean_bgr)
+            label = torch.as_tensor(sub["label"], device=dev)
+            x = image.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+
+            # ------- teacher posterior (:351-354) -------
+            with self._span("teacher"), torch.no_grad():
+                _, teach2 = st.teacher(x)
+                teacher_prob8 = torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
+
+            # ------- student forward + composite loss (:370-424) -------
+            with self._span("student_forward"):
+                t1m, t2m = ntm(st.t1.param), ntm(st.t2.param)
+                x1, x2 = st.model(x)
+                losses = simt_loss_block(
+                    x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1), teacher_prob8, label,
+                    t1m, t2m, num_classes=c, open_classes=o,
+                    threshold_high=s.threshold_high, threshold_low=s.threshold_low,
+                    lambda_place=s.lambda_place, lambda_seg=s.lambda_seg,
+                    ignore_label=cfg.ignore_label, chunk_rows=s.loss_chunk_rows)
+                convex = -(_sq(w1_mat @ t1m) + _sq(w2_mat @ t2m))
+                volume = _guarded_volume(t1m, t2m)
+                loss_target = (losses["loss_p2"] + losses["loss_y2"]
+                               + s.lambda_seg * losses["loss_p1"]
+                               + s.lambda_seg * losses["loss_y1"])
+                loss = (losses["place"] + loss_target + s.lambda_convex * convex
+                        + s.lambda_volume * volume + s.lambda_anchor * losses["anchor"])
+            with self._span("backward"):
+                (loss / iter_size).backward()
+
+            m = {"loss": loss, "loss_seg_p": losses["loss_p1"] + losses["loss_p2"],
+                 "loss_seg_y": losses["loss_y1"] + losses["loss_y2"], "convex": convex,
+                 "volume": volume, "anchor": losses["anchor"], "place": losses["place"]}
+            for k, v in m.items():
+                v = v.detach()
+                if iter_size == 1:
+                    metrics[k] = v
+                elif k in _ACCUM:
+                    metrics[k] = metrics.get(k, 0.0) + v / iter_size
+                else:
+                    metrics[k] = v
+
+        with self._span("optimizer"):
+            st.model_opt.step()
+            st.t1.opt.step()
+            st.t2.opt.step()
+        st.step += 1
+        metrics["lr"] = torch.tensor(lr)
+        return metrics
+
+
+def make_simt_step(cfg) -> SimTStep:
+    """The SimT train step for ``cfg`` (a ``TrainConfig``)."""
+    return SimTStep(cfg)
