@@ -10,18 +10,26 @@ Phases (any failure exits non-zero before the last line is printed):
      zero operand) and edge cases; the loss core's forward and backward (B2/B3) at the
      train path's shapes (xcat 1x65x129x68 -> 512x1024, C 19 + O 15; batch 1 and 2),
      with all labels ignored, every pixel unknown, a 37x301 output from 6x39 logits
-     and a planted anchor tie across blocks and images;
-  3. small-input checks, float32 on the card against the CPU: the whole evaluation, and
+     and a planted anchor tie across blocks and images; the trunk's dilated 3x3 conv
+     (B4 forward and input gradient, B5 weight gradient) at the four trunk geometries
+     in bf16 at batch 1 and 2, in float32 at a small one, and on edge cases (3 -> 5
+     channels on 13x10, padding wider than a 3x5 image, channel counts off the tiles);
+  3. small-input checks, float32 on the card against the CPU: the whole evaluation,
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
-     inner_w_steps 3);
+     inner_w_steps 3) and three warmup steps at the same geometry (closed set);
   4. main paths, each with every launch count zeroed just before and read just after:
      the two-scale ``evaluate(device="cuda")`` of a full-width open-set
-     DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; then the SimT train step
-     of ``tools/train_simt.py`` (full-width student and teacher with seeded random
-     weights, batch 1, 512x1024 synthetic batches, bf16 autocast): 2 warm-up steps,
-     then 5 timed steps with CUDA-event times of their parts;
-  5. times: per-scale forward, each kernel against its plain version, its bound and,
-     where one exists, a library call computing the same function.
+     DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; the SimT train step of
+     ``tools/train_simt.py`` (full-width student and teacher with seeded random
+     weights, batch 1, 512x1024 synthetic batches, bf16 autocast); the warmup train
+     step of ``tools/train_warmup.py`` (full-width closed-set model, the same inputs).
+     Each train path: 2 warm-up steps, then 5 timed steps with CUDA-event times of
+     their parts, then 3 profiled steps for the device busy share, then the same step
+     with every conv2 on cuDNN (a yardstick the port never calls) timed in turns
+     against it; and three full-width warmup steps against conv2 on the plain taps;
+  5. times: per-scale forward (and with conv2 on cuDNN), each kernel against its
+     plain version, its bound and, where one exists, a library call computing the
+     same function.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -31,6 +39,7 @@ autocast.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -40,6 +49,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -52,20 +62,25 @@ from simt_tpu_torch.config import (ModelConfig, OptimConfig, SimTConfig,  # noqa
 from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_batch  # noqa: E402
 from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
+from simt_tpu_torch.models import layers  # noqa: E402
 from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
-from simt_tpu_torch.ops.kernels import eval_fused, loss_fused  # noqa: E402
-from simt_tpu_torch.tools import train_simt  # noqa: E402
-from simt_tpu_torch.train import create_simt_state, make_simt_step  # noqa: E402
+from simt_tpu_torch.ops.kernels import conv3x3, eval_fused, loss_fused  # noqa: E402
+from simt_tpu_torch.tools import train_simt, train_warmup  # noqa: E402
+from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
+                                  make_simt_step, make_warmup_step)
+from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
 
 SEED = 0
 C = 19
 OUT_HW = (1024, 2048)
 LOGIT_HW = ((65, 129), (81, 161))  # stride-8 maps of the 512x1024 and 640x1280 inputs
 N_IMAGES = 4
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor-core) flop/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor-core) flop/s,
+# bf16 dense tensor-core flop/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -182,13 +197,15 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
               mode="simt", return_hist=True, device="cuda", print_fn=lambda s: None)
     evaluate(model, **kw)  # warm-up: cuDNN plans, allocator
     lines = []
+    reset_conv_counts()
     eval_fused.multiscale_argmax_hist.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     miou, hist = evaluate(model, **dict(kw, print_fn=lines.append))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist.launches}
+    launches = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist.launches,
+                **conv_counts()}
     print(lines[-1])
     print(f"main path: evaluate(simt, two scales, {OUT_HW[0]}x{OUT_HW[1]}) over "
           f"{N_IMAGES} images: {seconds:.3f} s, {N_IMAGES / seconds:.3f} img/s, "
@@ -196,6 +213,8 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     if launches["multiscale_argmax_hist"] != N_IMAGES:
         fail(f"eval_fused launched {launches['multiscale_argmax_hist']} times for "
              f"{N_IMAGES} images")
+    # Two scales a image, one B4 forward for each of the 33 bottlenecks; no gradient.
+    check_conv_counts("eval", launches, fwd=2 * N_CONV2 * N_IMAGES, wgrad=0)
     if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
         fail(f"main path histogram total {hist.sum()} or mIoU {miou} is wrong")
     return launches, seconds
@@ -210,10 +229,13 @@ def phase_forward_times(model: torch.nn.Module) -> list:
         with torch.inference_mode():
             x1, x2 = model(x)
             ms = cuda_ms(lambda: model(x), iters=10)
+            with conv2_through(cudnn_conv2):
+                cudnn_ms = cuda_ms(lambda: model(x), iters=10)
         for out in (x1, x2):
             if out.shape != (1, C + 15, h8, w8) or not torch.isfinite(out).all():
                 fail(f"forward at {w}x{h}: shape {tuple(out.shape)} or non-finite values")
-        print(f"forward {w}x{h} (bf16 autocast, channels_last): {ms:.3f} ms")
+        print(f"forward {w}x{h} (bf16 autocast, channels_last): {ms:.3f} ms (conv2 "
+              f"through cuDNN instead, yardstick: {cudnn_ms:.3f} ms)")
         times.append(ms)
     return times
 
@@ -435,6 +457,7 @@ def phase_train_main_path(tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     loss_fused.loss_core_fwd.launches = 0
     loss_fused.loss_core_bwd.launches = 0
+    reset_conv_counts()
     step.spans = []
     t0 = time.perf_counter()
     for i in range(TIMED_STEPS):
@@ -442,7 +465,7 @@ def phase_train_main_path(tmp: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"loss_core_fwd": loss_fused.loss_core_fwd.launches,
-                "loss_core_bwd": loss_fused.loss_core_bwd.launches}
+                "loss_core_bwd": loss_fused.loss_core_bwd.launches, **conv_counts()}
     parts = {}
     for name, start, end in step.spans:
         parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
@@ -463,17 +486,23 @@ def phase_train_main_path(tmp: str) -> dict:
           + f"; sum {sum(parts.values()):.3f}, wall {seconds / TIMED_STEPS * 1e3:.3f}")
     if launches["loss_core_fwd"] != want or launches["loss_core_bwd"] != want:
         fail(f"loss core launched {launches} times for {want} sub-batch steps")
+    # Student and teacher forwards (33 each); the input gradient and the weight gradient
+    # of the trained blocks only (layers 3-4: 26; layers 1-2 are frozen in this stage).
+    check_conv_counts("SimT", launches, fwd=(2 * N_CONV2 + N_CONV2_L34) * want,
+                      wgrad=N_CONV2_L34 * want)
     device_ms = profile_steps(step, state, batches)
     print(f"train step device busy share: {device_ms:.3f} ms of kernels per step (profiler)"
           f" over {seconds / TIMED_STEPS * 1e3:.3f} ms wall per step (timed run) = "
           f"{device_ms / (seconds / TIMED_STEPS * 1e3):.3f}")
+    conv2_ab("SimT", step, state, batches)
     return {"launches": launches, "seconds": seconds, "parts": parts,
             "device_ms": device_ms}
 
 
-def profile_steps(step, state, batches, n: int = 3) -> float:
+def profile_steps(step, state, batches, n: int = 3,
+                  ours=("loss_fwd", "loss_bwd", "conv3x3")) -> float:
     """Kernel time per step from torch.profiler over ``n`` more steps, with the kernels
-    that take the most of it."""
+    that take the most of it and those of this package (names containing ``ours``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -490,9 +519,10 @@ def profile_steps(step, state, batches, n: int = 3) -> float:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"train step kernels (profiler, ms per step, {len(kernels) / n:.0f} launches per "
           f"step, total {total:.3f}): " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
-    ours = {k: v for k, v in by_name.items() if "loss_fwd" in k or "loss_bwd" in k}
-    print("loss core kernels in the step (ms per step): "
-          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ours.items()))
+    mine = {k: v for k, v in by_name.items() if any(o in k for o in ours)}
+    print("this package's kernels in the step (ms per step): "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in mine.items())
+          + f"; sum {sum(mine.values()):.3f}")
     return total
 
 
@@ -546,6 +576,368 @@ def phase_loss_kernel_times(rng: np.random.Generator, launches: dict, worst: dic
     return entries
 
 
+# ---------------------------------------------------------------------------------
+# The trunk's dilated 3x3 conv (B4/B5) and the warmup train path
+# ---------------------------------------------------------------------------------
+
+N_CONV2 = 33  # bottlenecks of ResNet-101: 3 + 4 + 23 + 3, one 3x3 conv each
+N_CONV2_L34 = 26  # those of layers 3 and 4 (trained in the SimT stage)
+# (name, H, W, channels, dilation, blocks) of the four trunk stages at a 512x1024 crop.
+TRUNK = (("layer1", 129, 257, 64, 1, 3), ("layer2", 65, 129, 128, 1, 4),
+         ("layer3", 65, 129, 256, 2, 23), ("layer4", 65, 129, 512, 4, 3))
+# Tolerances of B4/B5 against their plain versions. bf16 outputs (B4 forward and input
+# gradient): one bf16 ulp at the largest value, 2**-7 of the plain output's max abs.
+# Both sum exactly representable bf16 products in float32, in other orders, and round
+# once: a value then lands on the neighbouring bf16 number at most, which is up to
+# 2**-7 of it (a half ulp, 2**-8, bounds each side's rounding but not their
+# difference). float32 outputs: 1e-5 of the max (summation order). dw (float32 in
+# both): 1e-4 of the max (sums of up to 66k terms in another order).
+TOL_CONV_BF16, TOL_CONV_F32, TOL_WGRAD = 2.0 ** -7, 1e-5, 1e-4
+
+
+def reset_conv_counts() -> None:
+    conv3x3.conv3x3_fwd.launches = 0
+    conv3x3.conv3x3_wgrad.launches = 0
+
+
+def conv_counts() -> dict:
+    return {"conv3x3_fwd": conv3x3.conv3x3_fwd.launches,
+            "conv3x3_wgrad": conv3x3.conv3x3_wgrad.launches}
+
+
+def check_conv_counts(path: str, launches: dict, *, fwd: int, wgrad: int) -> None:
+    got = (launches["conv3x3_fwd"], launches["conv3x3_wgrad"])
+    print(f"{path} main path: B4 launched {got[0]} times (want {fwd}), B5 {got[1]} "
+          f"(want {wgrad})")
+    if got != (fwd, wgrad):
+        fail(f"{path}: conv3x3 launches {got}, want {(fwd, wgrad)}")
+
+
+def conv_inputs(batch: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
+                gen: torch.Generator):
+    """x (B, C, H, W), w (O, C, 3, 3) at the reference init's scale, g (B, O, H, W)."""
+    def cl(t):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+    x = cl(torch.relu(torch.randn(batch, c, h, w, device="cuda", generator=gen)))
+    wt = (torch.randn(o, c, 3, 3, device="cuda", generator=gen) * 0.01).to(dtype)
+    g = cl(torch.randn(batch, o, h, w, device="cuda", generator=gen))
+    return x, wt, g
+
+
+def _max_rel(a: torch.Tensor, b: torch.Tensor) -> Tuple[float, float]:
+    diff = float((a.float() - b.float()).abs().max())
+    return diff, diff / max(float(b.float().abs().max()), 1e-30)
+
+
+def phase_conv_kernels_vs_plain() -> dict:
+    """B4 (forward and input gradient) and B5 against conv3x3_taps / wgrad_taps."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = {}
+    for name, h, w, c, d, _ in TRUNK:
+        for b in (1, 2):
+            cases[f"{name}_b{b}"] = (b, h, w, c, c, d, torch.bfloat16)
+    cases.update({
+        "f32_17x23_32to48_d2": (2, 17, 23, 32, 48, 2, torch.float32),
+        "edge_13x10_3to5_d2": (2, 13, 10, 3, 5, 2, torch.bfloat16),
+        "edge_13x10_3to5_d2_f32": (2, 13, 10, 3, 5, 2, torch.float32),
+        "edge_pad_wider_3x5_d4": (1, 3, 5, 8, 16, 4, torch.bfloat16),
+        "edge_off_tile_72to40": (1, 9, 11, 72, 40, 1, torch.bfloat16),
+        "edge_off_tile_20to36_f32": (2, 7, 9, 20, 36, 2, torch.float32),
+    })
+    worst = {"match": True, "cases": {}}
+    for name, (b, h, w, c, o, d, dt) in cases.items():
+        x, wt, g = conv_inputs(b, h, w, c, o, dt, gen)
+        got = {"fwd": conv3x3.conv3x3_fwd(x, wt, d),
+               "dx": conv3x3.conv3x3_fwd(g, wt, d, flip=True),
+               "wgrad": conv3x3.conv3x3_wgrad(x, g, d)}
+        want = {"fwd": conv3x3.conv3x3_taps(x, wt, d),
+                "dx": conv3x3.conv3x3_taps(g, wt, d, flip=True),
+                "wgrad": conv3x3.wgrad_taps(x, g, d)}
+        torch.cuda.synchronize()
+        tol_out = TOL_CONV_BF16 if dt == torch.bfloat16 else TOL_CONV_F32
+        err, ok = {}, True
+        for op in ("fwd", "dx", "wgrad"):
+            if got[op].shape != want[op].shape or got[op].dtype != want[op].dtype:
+                fail(f"conv3x3 {op} [{name}]: {got[op].shape}/{got[op].dtype} vs "
+                     f"{want[op].shape}/{want[op].dtype}")
+            abs_err, rel = _max_rel(got[op], want[op])
+            err[op] = {"max_abs": abs_err, "rel_max": rel}
+            ok = ok and rel <= (TOL_WGRAD if op == "wgrad" else tol_out) and bool(
+                torch.isfinite(got[op]).all())
+        print(f"conv3x3 vs plain [{name}] B{b} {h}x{w} {c}->{o} d{d} {str(dt)[6:]}: "
+              + ", ".join(f"{op} {e['rel_max']:.3e}" for op, e in err.items())
+              + f" of max: {'ok' if ok else 'MISMATCH'}")
+        worst["cases"][name] = err
+        worst["match"] = worst["match"] and ok
+    if not worst["match"]:
+        fail("conv3x3 kernels disagree with their plain versions")
+    return worst
+
+
+@contextlib.contextmanager
+def conv2_through(fn):
+    """Route every bottleneck's conv2 through ``fn(x, w, d)`` instead of the port's op
+    (B4/B5) while the block runs: the cuDNN yardstick or the plain taps. Only this
+    script does this, to compare; the port always calls its own op."""
+    saved = layers.dilated_conv3x3
+    layers.dilated_conv3x3 = fn
+    try:
+        yield
+    finally:
+        layers.dilated_conv3x3 = saved
+
+
+def cudnn_conv2(x, w, d):
+    return F.conv2d(x, w, padding=d, dilation=d)
+
+
+def plain_conv2(x, w, d):
+    """The plain taps (float32 matmuls, outside autocast), differentiated by autograd."""
+    with torch.autocast("cuda", enabled=False):
+        return conv3x3.conv3x3_taps(x, w, d)
+
+
+def _timed_ms(step, state, batches, n: int = TIMED_STEPS) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _device_ms(step, state, batches, n: int = 3) -> float:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3 / n
+
+
+def conv2_ab(path: str, step, state, batches) -> dict:
+    """The train step with conv2 on B4/B5 against the same step with conv2 on cuDNN
+    (the yardstick), in turns kernels, cuDNN, cuDNN, kernels within this call: wall
+    ms per step over TIMED_STEPS steps each, then device ms per step (profiler)."""
+    wall = {"kernels": [], "cudnn": []}
+    for mode in ("kernels", "cudnn", "cudnn", "kernels"):
+        ctx = conv2_through(cudnn_conv2) if mode == "cudnn" else contextlib.nullcontext()
+        with ctx:
+            step(state, batches[0])  # cuDNN plans, allocator
+            wall[mode].append(_timed_ms(step, state, batches))
+    dev = {"kernels": _device_ms(step, state, batches)}
+    with conv2_through(cudnn_conv2):
+        dev["cudnn"] = _device_ms(step, state, batches)
+    print(f"{path} step, conv2 on B4/B5 vs on cuDNN (yardstick), in turns: wall ms per "
+          f"step kernels {wall['kernels'][0]:.3f}/{wall['kernels'][1]:.3f}, cuDNN "
+          f"{wall['cudnn'][0]:.3f}/{wall['cudnn'][1]:.3f}; device ms per step (profiler) "
+          f"kernels {dev['kernels']:.3f}, cuDNN {dev['cudnn']:.3f}")
+    return {"wall": wall, "device": dev}
+
+
+def warmup_vs_plain_conv(cfg, batches) -> None:
+    """Three full-width warmup steps with conv2 on B4/B5 against the same steps from the
+    same weights with conv2 on the plain taps (float32 sums, autograd backward): the
+    losses within 2e-2 relative (bf16 activations: each conv2 output may round one
+    bf16 ulp apart, 2**-7, and the steps feed that back)."""
+    base = train_warmup.build_model(cfg)
+    losses = {}
+    for mode in ("kernels", "plain"):
+        st = create_warmup_state(copy.deepcopy(base), cfg, "cuda")
+        step = make_warmup_step(cfg)
+        ctx = conv2_through(plain_conv2) if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            losses[mode] = [{k: float(v) for k, v in step(st, batches[i]).items()}
+                            for i in range(3)]
+        del st
+        torch.cuda.empty_cache()
+    ok = True
+    for i, (lk, lp) in enumerate(zip(losses["kernels"], losses["plain"])):
+        rel = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in ("loss_seg1", "loss_seg2"))
+        ok = ok and rel <= 2e-2
+        print(f"full-width warmup step {i}, conv2 on B4/B5 vs plain taps: loss_seg1 "
+              f"{lk['loss_seg1']:.5f}/{lp['loss_seg1']:.5f}, loss_seg2 "
+              f"{lk['loss_seg2']:.5f}/{lp['loss_seg2']:.5f} (rel {rel:.2e}, limit 2e-2)")
+    if not ok:
+        fail("the full-width warmup step disagrees with its plain-conv reference")
+
+
+WARMUP_WATCH = ("conv1.weight", "layer1.0.conv2.weight")  # a stem and a layer1 weight
+
+
+def warmup_golden_config() -> TrainConfig:
+    """The golden geometry's closed-set warmup: C5, float32."""
+    return TrainConfig(model=ModelConfig(num_classes=5, compute_dtype="float32"),
+                       optim=OptimConfig(num_steps=1000), stage="warmup")
+
+
+def phase_warmup_small_steps() -> None:
+    """Three whole warmup steps on the card against the same steps on the CPU (float32,
+    TF32 off). Tolerances: the losses rel 1e-3 / abs 1e-4, as the SimT check; a stem
+    and a layer1 conv2 weight after the steps within 5e-2 of their largest change (the
+    random-init trunk's batch-statistic BatchNorm amplifies one-ulp differences, as in
+    tests/test_torch_warmup_step.py)."""
+    cfg = warmup_golden_config()
+    model = init_weights(ResNetMulti(5, 0, False, layers=(1, 1, 1, 1),
+                                     dtype=torch.float32),
+                         torch.Generator().manual_seed(SEED))
+    start = {k: model.state_dict()[k].clone() for k in WARMUP_WATCH}
+    batches = [synthetic_batch(1, (32, 64), 5, seed=SEED + i) for i in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = create_warmup_state(copy.deepcopy(model), cfg, dev)
+        step = make_warmup_step(cfg)
+        losses = [{k: float(v) for k, v in step(st, b).items()} for b in batches]
+        sd = st.model.state_dict()
+        out[dev] = (losses, {k: sd[k].detach().cpu() for k in WARMUP_WATCH})
+    ok = True
+    for i, (lc, lg) in enumerate(zip(out["cpu"][0], out["cuda"][0])):
+        for k in ("loss_seg1", "loss_seg2"):
+            ok = ok and math.isfinite(lg[k]) and abs(lg[k] - lc[k]) <= max(
+                1e-4, 1e-3 * abs(lc[k]))
+        print(f"small warmup step {i}: loss_seg1 cuda {lg['loss_seg1']:.6f} cpu "
+              f"{lc['loss_seg1']:.6f}, loss_seg2 {lg['loss_seg2']:.6f}/"
+              f"{lc['loss_seg2']:.6f}")
+    for k in WARMUP_WATCH:
+        d_cpu = out["cpu"][1][k] - start[k]
+        d_gpu = out["cuda"][1][k] - start[k]
+        _, rel = _max_rel(d_gpu, d_cpu)
+        moved = float(d_cpu.abs().max()) > 0
+        ok = ok and moved and rel <= 5e-2
+        print(f"small warmup steps cuda vs cpu: {k} change within {rel:.3e} of its max "
+              f"{float(d_cpu.abs().max()):.3e} (limit 5e-2): {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the warmup step on the card disagrees with the CPU at the golden geometry")
+
+
+def phase_warmup_main_path() -> dict:
+    """The warmup step at full width through the CLI's own calls."""
+    args = train_warmup.build_parser().parse_args(
+        ["--synthetic", "--num-steps-stop", str(2 + TIMED_STEPS)])
+    cfg = train_warmup.build_config(args)
+    t0 = time.perf_counter()
+    state = create_warmup_state(train_warmup.build_model(cfg), cfg, "cuda")
+    batches = train_simt.synthetic_batches(cfg, cfg.num_steps_stop, torch.device("cuda"))
+    step = make_warmup_step(cfg)
+    torch.cuda.synchronize()
+    print(f"warmup set-up (model, state, {len(batches)} synthetic 512x1024 batches): "
+          f"{time.perf_counter() - t0:.1f} s")
+    metrics = [step(state, batches[i % len(batches)]) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_conv_counts()
+    step.spans = []
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        metrics.append(step(state, batches[(2 + i) % len(batches)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = conv_counts()
+    parts = {}
+    for name, start, end in step.spans:
+        parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
+    step.spans = None
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(format_warmup_line(i, cfg.num_steps, vals))
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"warmup step {i}: non-finite metrics {vals}")
+    print(f"main path: warmup train step, full width (closed set), batch 1, 512x1024, "
+          f"bf16 autocast: {TIMED_STEPS} steps in {seconds:.3f} s, "
+          f"{TIMED_STEPS / seconds:.3f} steps/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+    print("warmup step parts (CUDA events, ms per step): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; sum {sum(parts.values()):.3f}, wall {seconds / TIMED_STEPS * 1e3:.3f}")
+    # Every bottleneck trains in this stage: forward, input gradient and weight gradient.
+    want = TIMED_STEPS * cfg.optim.iter_size
+    check_conv_counts("warmup", launches, fwd=2 * N_CONV2 * want, wgrad=N_CONV2 * want)
+    device_ms = profile_steps(step, state, batches)
+    print(f"warmup step device busy share: {device_ms:.3f} ms of kernels per step "
+          f"(profiler) over {seconds / TIMED_STEPS * 1e3:.3f} ms wall per step (timed "
+          f"run) = {device_ms / (seconds / TIMED_STEPS * 1e3):.3f}")
+    conv2_ab("warmup", step, state, batches)
+    del state
+    torch.cuda.empty_cache()
+    warmup_vs_plain_conv(cfg, batches)
+    return {"launches": launches, "seconds": seconds, "parts": parts,
+            "device_ms": device_ms}
+
+
+def phase_conv_times(paths: dict, worst: dict) -> list:
+    """B4 and B5 at the four trunk geometries (batch 1, bf16): the wrappers as the
+    model calls them (the weight permute included), the plain versions, the bound and
+    the library yardsticks the port never calls (cuDNN through F.conv2d and
+    aten.convolution_backward). Returns the kernels line's entries at layer3 (23 of the
+    33 blocks); the other geometries are printed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    step_ops = 0
+    entries = []
+    for name, h, w, c, d, blocks in TRUNK:
+        x, wt, g = conv_inputs(1, h, w, c, c, torch.bfloat16, gen)
+        pad = (d, d)
+        t = {
+            "fwd": cuda_ms(lambda: conv3x3.conv3x3_fwd(x, wt, d), iters=20),
+            "dx": cuda_ms(lambda: conv3x3.conv3x3_fwd(g, wt, d, flip=True), iters=20),
+            "wgrad": cuda_ms(lambda: conv3x3.conv3x3_wgrad(x, g, d), iters=20),
+            "fwd_plain": cuda_ms(lambda: conv3x3.conv3x3_taps(x, wt, d), iters=3,
+                                 warmup=1),
+            "dx_plain": cuda_ms(lambda: conv3x3.conv3x3_taps(g, wt, d, flip=True),
+                                iters=3, warmup=1),
+            "wgrad_plain": cuda_ms(lambda: conv3x3.wgrad_taps(x, g, d), iters=3,
+                                   warmup=1),
+            "fwd_library": cuda_ms(lambda: F.conv2d(x, wt, padding=pad, dilation=d),
+                                   iters=20),
+            "dx_library": cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                g, x, wt, None, [1, 1], list(pad), [d, d], False, [0, 0], 1,
+                [True, False, False]), iters=20),
+            "wgrad_library": cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                g, x, wt, None, [1, 1], list(pad), [d, d], False, [0, 0], 1,
+                [False, True, False]), iters=20),
+        }
+        line = []
+        for op in ("fwd", "dx", "wgrad"):
+            nbytes, ops = conv3x3.work(1, h, w, c, c, torch.bfloat16, op)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_FLOP_S * 1e3
+            bound = max(t_bytes, t_ops)
+            step_ops += ops * blocks
+            line.append(f"{op} {t[op]:.4f} ms (plain {t[op + '_plain']:.3f}, cuDNN "
+                        f"{t[op + '_library']:.4f}, bound {bound:.4f} by "
+                        f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
+                        f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                        f"{ops / t[op] / 1e9:.1f} TFLOP/s)")
+            if name == "layer3" and op in ("fwd", "wgrad"):
+                key = "conv3x3_fwd" if op == "fwd" else "conv3x3_wgrad"
+                err = worst["cases"]["layer3_b1"][op]
+                entries.append({
+                    "name": key, "route": "cuda",
+                    "source": "simt_tpu_torch/csrc/conv3x3.cu",
+                    "replaces": "experiments/pallas_alternates/conv3x3.py:"
+                                + ("73" if op == "fwd" else "97"),
+                    "launches": paths["warmup"][key],
+                    "launches_by_path": {p: v[key] for p, v in paths.items()},
+                    "max_abs_err": err["max_abs"], "rel_err": err["rel_max"],
+                    "match": worst["match"], "ms": t[op], "plain_ms": t[op + "_plain"],
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": t[op + "_library"], "bytes": nbytes, "ops": ops,
+                    **({"dx_ms": t["dx"], "dx_plain_ms": t["dx_plain"],
+                        "dx_library_ms": t["dx_library"]} if op == "fwd" else {}),
+                    "shape": (f"x 1x{h}x{w}x{c} bf16 NHWC, w {c}x{c}x3x3 bf16, d {d} -> "
+                              + (f"1x{h}x{w}x{c} bf16" if op == "fwd"
+                                 else f"dw {c}x{c}x3x3 f32")),
+                })
+        print(f"conv3x3 times [{name} 1x{h}x{w}x{c} d{d}, {blocks} blocks]: "
+              + "; ".join(line))
+    print(f"conv3x3 work of one warmup step (forward + input gradient + weight gradient "
+          f"of the 33 blocks): {step_ops / 1e12:.3f} TFLOP, "
+          f"{step_ops / PEAK_BF16_FLOP_S * 1e3:.3f} ms at the bf16 peak")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -565,9 +957,11 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain(rng)
     loss_worst = phase_loss_kernels_vs_plain(rng)
+    conv_worst = phase_conv_kernels_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_small_reference(tmp)
         phase_small_steps(tmp)
+        phase_warmup_small_steps()
         model = deeplab_multi(C, 15, openset=True)
         init_weights(model, torch.Generator().manual_seed(SEED))
         launches, seconds = phase_main_path(tmp, model)
@@ -575,14 +969,18 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         train = phase_train_main_path(tmp)
+        torch.cuda.empty_cache()
+        warm = phase_warmup_main_path()
     entry = phase_kernel_times(rng, launches, worst)
     device_ms = sum(forward_ms) + entry["kernel_ms"]
     print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
           f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
           f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
     loss_entries = phase_loss_kernel_times(rng, train["launches"], loss_worst)
+    conv_entries = phase_conv_times({"warmup": warm["launches"], "simt": train["launches"],
+                                     "eval": launches}, conv_worst)
 
-    print(json.dumps({"kernels": [entry, *loss_entries]}))
+    print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,10 +5,11 @@ counterpart of the same name there. It imports ``torch`` and never ``jax`` nor
 anything of ``simt_tpu``: what it needs of the JAX package (constants, list files,
 the interpolation matrices) it keeps as its own copy.
 
-Slice 1 covers the two-scale Cityscapes evaluation: the data path, DeepLabv2-ResNet-101
-with open-set heads, weights carried over from JAX or a reference ``.pth``, the
-align-corners upsample, the metrics and the fused upsample+argmax+histogram CUDA kernel
-(``ops/kernels/eval_fused.py``). Entry points run on the card (``device="cuda"``)
+Ported so far: the two-scale Cityscapes evaluation (with the fused
+upsample+argmax+histogram kernel, ``ops/kernels/eval_fused.py``), the SimT train step
+(with the streamed loss core's kernels, ``ops/kernels/loss_fused.py``) and the warmup
+train step, on DeepLabv2-ResNet-101 whose bottleneck 3x3 convs run the port's own
+kernels (``ops/kernels/conv3x3.py``). Entry points run on the card (``device="cuda"``)
 unless the caller asks for the CPU.
 """
 

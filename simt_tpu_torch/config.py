@@ -1,9 +1,9 @@
 """Configuration (counterpart of ``simt_tpu/config.py``).
 
-The evaluation protocol's constants and the SimT stage's training dataclasses with
-the named presets of the published runs. All defaults are documented against the
-reference file:line they reproduce. Fields of the JAX package's config that nothing in
-the port reads yet (the model family, the warmup stage, the device mesh, the host
+The evaluation protocol's constants and the training dataclasses of both stages
+(warmup and SimT) with the named presets of the published runs. All defaults are
+documented against the reference file:line they reproduce. Fields of the JAX package's
+config that nothing in the port reads yet (the model family, the device mesh, the host
 pipeline and the pseudo-label lists) come with the slices that read them.
 """
 
@@ -39,10 +39,13 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The open-set DeepLabv2-ResNet-101 heads (reference: model/deeplab_multi.py)."""
+    """The DeepLabv2-ResNet-101 heads (reference: model/deeplab_multi.py)."""
 
     num_classes: int = NUM_CLASSES  # NUM_CLASSES, trainV2_simt.py:50
     open_classes: int = OPEN_CLASSES  # sh_simt.sh:17 (module default 15, :51)
+    # Open-set heads (layer5_1 / layer6_1): the SimT stage's student; the warmup
+    # network is closed-set (trainV1_warmup.py).
+    openset: bool = False
     # "bfloat16": convolutions under bf16 autocast, float32 parameters and head sums;
     # "float32": everything in float32.
     compute_dtype: str = "bfloat16"
@@ -100,15 +103,18 @@ class TrainConfig:
     random_seed: int = 1234  # RANDOM_SEED :55
     restore_from: str = ""
     ignore_label: int = 255
+    stage: str = "simt"  # "warmup" (trainV1_warmup.py) or "simt" (trainV2_simt.py)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 
 def preset(name: str) -> TrainConfig:
-    """Named presets of the published SimT runs (the ``simt_*`` presets of
-    ``simt_tpu/config.py``):
+    """Named presets of the published runs (those of ``simt_tpu/config.py``):
 
+    - ``warmup_bapa``: sh_warmup.sh stage-1 training (trainV1_warmup.py defaults:
+      closed set, NUM_STEPS_STOP 150 000, :52). Its pseudo-label list comes with the
+      data slice;
     - ``simt_bapa_lr25``: logs/BAPA_SimT_lr25.out (lr 2.5e-4 / lr_T 2.5e-3);
     - ``simt_bapa_lr6``: sh_simt.sh:17 (lr 6e-4 / lr_T 6e-3);
     - ``simt_sfda``: logs/SFDA_SimT.out (lr 2.5e-4 / lr_T 2.5e-3). It differs from
@@ -116,10 +122,14 @@ def preset(name: str) -> TrainConfig:
       sig_NTM reads ClassDist_bapa.npy in every run (deeplab_multi.py:255).
     """
     base = TrainConfig()
+    if name == "warmup_bapa":
+        return base.replace(stage="warmup", num_steps_stop=150_000,
+                            model=dataclasses.replace(base.model, openset=False))
     lrs = {"simt_bapa_lr25": (2.5e-4, 2.5e-3), "simt_bapa_lr6": (6e-4, 6e-3),
            "simt_sfda": (2.5e-4, 2.5e-3)}
     if name not in lrs:
         raise ValueError(f"unknown preset: {name!r}")
     lr, lr_t = lrs[name]
     return base.replace(
+        stage="simt", model=dataclasses.replace(base.model, openset=True),
         optim=dataclasses.replace(base.optim, learning_rate=lr, learning_rate_t=lr_t))

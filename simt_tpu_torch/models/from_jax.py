@@ -110,6 +110,28 @@ def load_matching(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> d
     return report
 
 
+def _as_f32(tree):
+    if isinstance(tree, Mapping):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    return np.asarray(tree, dtype=np.float32)
+
+
+def _variables(params, stats) -> "OrderedDict[str, torch.Tensor]":
+    return state_dict_from_flax({"params": _as_f32(params), "batch_stats": _as_f32(stats)})
+
+
+def warmup_state_from_jax(state) -> dict:
+    """The port's pieces of a JAX ``WarmupState`` (``simt_tpu/train/state.py``) whose
+    leaves are numpy arrays: ``model``, a state_dict of the params and batch statistics,
+    and ``step``, the step as an int.
+
+    The SGD momentum is not carried: at step 0 it is zero, which is what
+    ``train.warmup.create_warmup_state`` starts from.
+    """
+    return {"model": _variables(state.model.params, state.model.batch_stats),
+            "step": int(np.asarray(state.step))}
+
+
 def simt_state_from_jax(state) -> dict:
     """The port's pieces of a JAX ``SimTState`` (``simt_tpu/train/state.py``) whose
     leaves are numpy arrays (``jax.tree.map(np.asarray, state)``), read by attribute:
@@ -122,19 +144,11 @@ def simt_state_from_jax(state) -> dict:
     The optimizer moments are not carried: at step 0 they are zeros, which is what
     ``train.simt.create_simt_state`` starts from.
     """
-    def as_f32(tree):
-        if isinstance(tree, Mapping):
-            return {k: as_f32(v) for k, v in tree.items()}
-        return np.asarray(tree, dtype=np.float32)
-
-    def variables(params, stats):
-        return state_dict_from_flax({"params": as_f32(params), "batch_stats": as_f32(stats)})
-
     ntm = {k: torch.from_numpy(np.array(getattr(state, k).param, np.float32))
            for k in ("t1", "t2", "w1", "w2")}
     return {
-        "student": variables(state.model.params, state.model.batch_stats),
-        "teacher": variables(state.teacher_params, state.teacher_batch_stats),
+        "student": _variables(state.model.params, state.model.batch_stats),
+        "teacher": _variables(state.teacher_params, state.teacher_batch_stats),
         **ntm,
         "step": int(np.asarray(state.step)),
     }

@@ -2,8 +2,10 @@
 
 The math of the reference (model/deeplab_multi.py:57-167), in PyTorch's idiom: NCHW
 ``nn.Module``s whose names follow the reference, so its ``.pth`` files and the JAX
-export load with plain ``load_state_dict``. The JAX package's TPU formulations (the
-W-folded stem, the tap GEMMs, the merged-N ASPP) are plain convolutions here.
+export load with plain ``load_state_dict``. The bottleneck's dilated 3x3 conv goes
+through the port's own op, ``ops/conv.py::dilated_conv3x3`` (kernels B4/B5 on a card),
+as the JAX package's goes through ``dilated_conv3x3_taps``; its other TPU formulations
+(the W-folded stem, the 1x1 dots, the merged-N ASPP) are plain convolutions here.
 
 BatchNorm affine parameters are frozen (``requires_grad=False``, as in the reference).
 Evaluation normalises with the running statistics; training with the batch statistics,
@@ -17,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv import dilated_conv3x3
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -69,6 +73,7 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False):
         super().__init__()
+        self.dilation = dilation
         self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False)
         self.bn1 = frozen_bn(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=1, padding=dilation,
@@ -86,7 +91,10 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
+        # conv2 through the port's own conv op (B4/B5 on a card), as the JAX package
+        # routes it through dilated_conv3x3_taps; ``conv2`` keeps the parameter.
+        out = dilated_conv3x3(out, self.conv2.weight.to(out.dtype), self.dilation)
+        out = self.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(out + residual)

@@ -1,5 +1,5 @@
-"""The SimT loss block: every full-resolution loss of one step in one streamed pass
-(counterpart of ``simt_tpu/ops/fused_losses.py``).
+"""The streamed full-resolution losses (counterpart of ``simt_tpu/ops/fused_losses.py``):
+the SimT loss block and the warmup stage's ``upsample_ce``.
 
 The reference evaluates its losses on logits upsampled to the 512x1024 crop
 (tools/trainV2_simt.py:370-409); done naively that keeps dozens of (B, 512, 1024, 34)
@@ -17,16 +17,23 @@ parts, as in the JAX package:
   3. ``_finish_losses``: masked means from the 16 (sum, count) accumulators, the
      teacher posterior rows at the winning anchor pixels, and the anchor and
      placeholder compositions (:374-384, :398-399).
+
+``upsample_ce`` is the warmup loss (trainV1_warmup.py:219-224): align-corners upsample
+of one head's stride-8 logits and the masked CE mean, streamed over output-row chunks
+each under ``torch.utils.checkpoint``. The JAX package computes it in XLA (a
+checkpointed ``lax.scan``), so it is plain PyTorch on both devices here.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .interp import _interp_matrix, upsample_bilinear_align_corners
-from .kernels.loss_fused import SimTLossCore, loss_core_fwd_reference
+from .kernels.loss_fused import SimTLossCore, _row_chunks, loss_core_fwd_reference
+from .losses import _valid_and_safe
 
 
 def _finish_mean(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -118,3 +125,38 @@ def _finish_losses(sums, aidx, presence, teacher_prob8, t1m, t2m, *, hh, ww,
               + (presence[1, :, None] * (t2m - teacher_rows_at(aidx[1])) ** 2).sum())
     return {"loss_p1": loss_p1, "loss_p2": loss_p2, "loss_y1": loss_y1,
             "loss_y2": loss_y2, "place": place, "anchor": anchor}
+
+
+def _ce_chunk_sums(logits: torch.Tensor, a_h_c: torch.Tensor, a_w: torch.Tensor,
+                   label_c: torch.Tensor, ignore_label: int) -> Tuple[torch.Tensor,
+                                                                      torch.Tensor]:
+    """(sum of the CE over the valid pixels, their count) of one chunk of output rows:
+    the H step then the W step of the upsample (two matmuls), then the masked CE."""
+    z = torch.einsum("rh,bhwc->brwc", a_h_c, logits)
+    pred = torch.einsum("Ww,brwc->brWc", a_w, z)
+    valid, safe = _valid_and_safe(label_c, ignore_label)
+    lz = torch.logsumexp(pred, dim=-1)
+    picked = torch.gather(pred, -1, safe[..., None])[..., 0]
+    vf = valid.to(pred.dtype)
+    return ((lz - picked) * vf).sum(), vf.sum()
+
+
+def upsample_ce(logits: torch.Tensor, label: torch.Tensor, *, ignore_label: int = 255,
+                chunk_rows: int = 64) -> torch.Tensor:
+    """Align-corners upsample of (B, h8, w8, C) logits to the (B, H, W) label's size and
+    the masked CE mean over the valid pixels (0 when none is valid), in float32
+    (simt_tpu/ops/fused_losses.py:324-354). Streamed over chunks of ``chunk_rows``
+    output rows (any positive value; the last chunk may be shorter), each recomputed in
+    the backward, so no (B, H, W, C) tensor is ever held."""
+    _, h8, w8, _ = logits.shape
+    _, hh, ww = label.shape
+    dev = logits.device
+    a_h = torch.from_numpy(_interp_matrix(h8, hh)).to(dev)
+    a_w = torch.from_numpy(_interp_matrix(w8, ww)).to(dev)
+    x = logits.float()
+    s = n = None
+    for r0, r1 in _row_chunks(hh, chunk_rows):
+        s_c, n_c = checkpoint(_ce_chunk_sums, x, a_h[r0:r1], a_w, label[:, r0:r1],
+                              ignore_label, use_reentrant=False)
+        s, n = (s_c, n_c) if s is None else (s + s_c, n + n_c)
+    return _finish_mean(s, n)

@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(__file__)))),
     "build", "kernels",
 )
-SOURCES: Dict[str, str] = {"eval_fused": "eval_fused.cu", "loss_fused": "loss_fused.cu"}
+SOURCES: Dict[str, str] = {"eval_fused": "eval_fused.cu", "loss_fused": "loss_fused.cu",
+                           "conv3x3": "conv3x3.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

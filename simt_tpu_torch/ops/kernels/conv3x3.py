@@ -1,0 +1,239 @@
+"""Stride-1 SAME dilated 3x3 convolution: CUDA kernel wrappers (B4, B5) and their plain
+PyTorch versions.
+
+Counterpart of ``experiments/pallas_alternates/conv3x3.py`` (the Pallas form of
+``simt_tpu/ops/conv.py::dilated_conv3x3_taps``, the conv2 of every bottleneck):
+
+  - ``conv3x3_fwd(x, w, d)`` (B4): y = conv(x, w), padding ``d``, dilation ``d``, no
+    bias. With ``flip=True`` it computes the input gradient instead: the same conv of
+    the cotangent with the spatially flipped, io-transposed kernel (stride-1 SAME
+    dilated conv is its own transpose up to that flip);
+  - ``conv3x3_wgrad(x, g, d)`` (B5): the weight gradient
+    ``dw[o, c, kh, kw] = sum_pix x_shift(kh, kw)[c] * g[o]``, float32.
+
+Tensors are NCHW (``x`` (B, Ck, H, W), ``w`` the OIHW parameter (O, C, 3, 3)); the
+kernels read them as NHWC, so on a CUDA device they must be ``channels_last``. The
+operands share one dtype (bfloat16 or float32), accumulation is float32 and ``y`` is
+rounded once to the operands' dtype, as ``dot_general(preferred_element_type=f32)``
+followed by ``astype`` in the JAX package.
+
+Both wrappers dispatch on the tensors' device: on the CPU they run ``conv3x3_taps`` /
+``wgrad_taps`` (nine shifted-slice matmuls in float32, the JAX package's
+``_conv_taps`` / ``_wgrad_taps``); on a CUDA device they launch the kernels of
+``csrc/conv3x3.cu`` (and add one to their ``launches``) or raise. They never fall back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# SMs of an H100 SXM; B5 splits the pixel sum so that its grid holds about
+# _WGRAD_BLOCKS_PER_SM blocks for each of them.
+_NUM_SMS = 132
+_WGRAD_BLOCKS_PER_SM = 4
+_WGRAD_TILE = 64  # B5's C and O tile
+_WGRAD_MIN_PIXELS = 256  # fewest pixels one split sums
+
+
+def tap_weights(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """The nine tap matrices (3, 3, Ck, N) of the OIHW weight ``w`` (O, C, 3, 3):
+    ``w[:, :, kh, kw].T`` for the forward (Ck = C, N = O); for ``flip`` the flipped,
+    io-transposed kernel of the input gradient, ``w[:, :, 2-kh, 2-kw]`` (Ck = O,
+    N = C). One permute copy of the (small) weight."""
+    if flip:
+        return w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def conv3x3_taps(x: torch.Tensor, w: torch.Tensor, d: int, *,
+                 flip: bool = False) -> torch.Tensor:
+    """Plain version of B4: nine shifted-slice matmuls (``_conv_taps``,
+    simt_tpu/ops/conv.py:64-80), float32 products and sums in tap order, the result
+    rounded once to ``x``'s dtype. Returns NCHW (channels_last memory)."""
+    b, _, h, ww = x.shape
+    wk = tap_weights(w, flip).float()
+    xp = F.pad(_nhwc(x), (0, 0, d, d, d, d))
+    acc = None
+    for kh in range(3):
+        for kw in range(3):
+            xs = xp[:, kh * d:kh * d + h, kw * d:kw * d + ww, :].float()
+            y = torch.matmul(xs, wk[kh, kw])
+            acc = y if acc is None else acc + y
+    return acc.to(x.dtype).permute(0, 3, 1, 2)
+
+
+def wgrad_taps(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
+    """Plain version of B5: ``dw[kh, kw] = x_shift^T @ g`` over all pixels
+    (``_wgrad_taps``, simt_tpu/ops/conv.py:83-101), float32. ``x`` (B, C, H, W) and
+    ``g`` (B, O, H, W) -> OIHW (O, C, 3, 3) float32."""
+    _, c, h, ww = x.shape
+    o = g.shape[1]
+    xp = F.pad(_nhwc(x), (0, 0, d, d, d, d))
+    g2 = _nhwc(g).reshape(-1, o).float()
+    taps = []
+    for kh in range(3):
+        for kw in range(3):
+            xs = xp[:, kh * d:kh * d + h, kw * d:kw * d + ww, :].reshape(-1, c).float()
+            taps.append(xs.T @ g2)  # (C, O)
+    return torch.stack(taps).reshape(3, 3, c, o).permute(3, 2, 0, 1).contiguous()
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, d: int, *,
+                flip: bool = False) -> torch.Tensor:
+    """B4: (B, Ck, H, W) ``x`` and (O, C, 3, 3) ``w`` -> (B, N, H, W) in ``x``'s dtype,
+    with (Ck, N) = (C, O), or (O, C) for ``flip`` (the input gradient)."""
+    _check(x, w, d, w.shape[0] if flip else w.shape[1])
+    if x.device.type == "cpu":
+        return conv3x3_taps(x, w, d, flip=flip)
+    b, ck, h, ww = x.shape
+    n = w.shape[1] if flip else w.shape[0]
+    wk = tap_weights(w, flip)
+    y = torch.empty((b, n, h, ww), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    vec = _vec(x.dtype, (ck, n), (x, wk, y))
+    err = _lib().simt_conv3x3_fwd(x.data_ptr(), wk.data_ptr(), y.data_ptr(), b, h, ww,
+                                  ck, n, d, _DTYPE[x.dtype], vec, _stream(x))
+    _raise_if(err, "conv3x3_fwd")
+    conv3x3_fwd.launches += 1
+    return y
+
+
+conv3x3_fwd.launches = 0
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
+    """B5: (B, C, H, W) ``x`` and (B, O, H, W) ``g`` of one dtype -> dw (O, C, 3, 3)
+    float32."""
+    if (g.dim() != 4 or x.dim() != 4 or g.shape[0] != x.shape[0]
+            or g.shape[2:] != x.shape[2:]):
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be "
+                         "(B, C, H, W) and (B, O, H, W)")
+    _check_tensor(x, d, "x")
+    _check_tensor(g, d, "g")
+    if g.dtype != x.dtype or g.device != x.device:
+        raise TypeError(f"x and g differ in dtype or device: {x.dtype}/{g.dtype}, "
+                        f"{x.device}/{g.device}")
+    if x.device.type == "cpu":
+        return wgrad_taps(x, g, d)
+    b, c, h, ww = x.shape
+    o = g.shape[1]
+    splits, per_split = wgrad_splits(b * h * ww, c, o)
+    part = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
+    dw = torch.empty((o, c, 3, 3), dtype=torch.float32, device=x.device)
+    vec = _vec(x.dtype, (c, o), (x, g))
+    err = _lib().simt_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                                    dw.data_ptr(), b, h, ww, c, o, d, splits, per_split,
+                                    _DTYPE[x.dtype], vec, _stream(x))
+    _raise_if(err, "conv3x3_wgrad")
+    conv3x3_wgrad.launches += 1
+    return dw
+
+
+conv3x3_wgrad.launches = 0
+
+
+def wgrad_splits(pixels: int, c: int, o: int) -> Tuple[int, int]:
+    """(splits, pixels per split) of B5's pixel sum: enough blocks to fill the card
+    (the grid is splits x C-tiles x O-tiles x 9 taps), at least _WGRAD_MIN_PIXELS
+    pixels a split. A function of the shapes only, so the sum order is fixed."""
+    pixels = max(pixels, 1)
+    tiles = 9 * math.ceil(c / _WGRAD_TILE) * math.ceil(o / _WGRAD_TILE)
+    want = math.ceil(_WGRAD_BLOCKS_PER_SM * _NUM_SMS / tiles)
+    splits = max(1, min(want, math.ceil(pixels / _WGRAD_MIN_PIXELS)))
+    per_split = math.ceil(pixels / splits)
+    return math.ceil(pixels / per_split), per_split
+
+
+def work(batch: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
+         op: str) -> Tuple[int, int]:
+    """(bytes, operations) one call needs, each input read once and each output written
+    once: ``op`` "fwd" reads x (B, H, W, C) and the weight, writes y (B, H, W, O);
+    "dx" reads g (B, H, W, O) and the weight, writes dx; "wgrad" reads x and g, writes
+    dw (9, C, O) float32. Operations: 2 * pixels * 9 * C * O multiply-adds' worth.
+    The weight permute the wrappers make is not counted (it is the implementation's,
+    not the function's); it is in the wrapper's measured time."""
+    es = dtype.itemsize
+    pixels = batch * h * w
+    ops = 2 * pixels * 9 * c * o
+    if op in ("fwd", "dx"):
+        nbytes = pixels * (c + o) * es + 9 * c * o * es
+    elif op == "wgrad":
+        nbytes = pixels * (c + o) * es + 9 * c * o * 4
+    else:
+        raise ValueError(f"unknown op {op!r} (fwd, dx or wgrad)")
+    return nbytes, ops
+
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_tensor(x: torch.Tensor, d: int, name: str) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be (B, C, H, W), got {tuple(x.shape)}")
+    if int(d) != d or d < 1:
+        raise ValueError(f"dilation must be a positive integer, got {d}")
+    if x.device.type == "cpu":
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device} (expected cpu or cuda)")
+    if x.dtype not in _DTYPE:
+        raise TypeError(f"CUDA kernel takes bfloat16 or float32, got {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"CUDA kernel takes channels_last {name}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name} has 2**31 or more elements")
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, d: int, ck: int) -> None:
+    _check_tensor(x, d, "x")
+    if w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"w must be OIHW (O, C, 3, 3), got {tuple(w.shape)}")
+    if x.shape[1] != ck:
+        raise ValueError(f"x has {x.shape[1]} channels, the weight {tuple(w.shape)} "
+                         f"takes {ck}")
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"x and w differ in dtype or device: {x.dtype}/{w.dtype}, "
+                        f"{x.device}/{w.device}")
+
+
+def _vec(dtype: torch.dtype, channels, tensors) -> int:
+    """1 when every channel count is a whole number of 16-byte units and every pointer
+    is 16-byte aligned (the kernels' vector loads), else 0."""
+    ev = 16 // dtype.itemsize
+    return int(all(ch % ev == 0 for ch in channels)
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_if(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().simt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv3x3")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.simt_conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.simt_conv3x3_fwd.restype = i
+    lib.simt_conv3x3_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.simt_conv3x3_wgrad.restype = i
+    lib.simt_cuda_error_string.argtypes = [i]
+    lib.simt_cuda_error_string.restype = ctypes.c_char_p
+    return lib

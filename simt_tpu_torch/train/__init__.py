@@ -1,2 +1,3 @@
 from .simt import SimTStep, create_simt_state, make_simt_step
-from .state import SimTState, param_label
+from .state import SimTState, WarmupState, param_label
+from .warmup import WarmupStep, create_warmup_state, make_warmup_step

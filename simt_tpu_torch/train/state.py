@@ -4,9 +4,10 @@
   - model: ``torch.optim.SGD`` (momentum 0.9, weight decay 5e-4, no Nesterov) over two
     groups, the backbone at 1x and the classifier heads at 10x the poly-decayed rate
     (model/deeplab_multi.py:235-237, trainV2_simt.py:296-297). In the SimT stage the
-    stem, ``bn1``, ``layer1`` and ``layer2`` are frozen (deeplab_multi.py:203-209), as
-    are every BatchNorm's affine parameters (requires_grad=False in the reference) and
-    the ASPP branches the 2-branch quirk never uses. Frozen parameters get
+    stem, ``bn1``, ``layer1`` and ``layer2`` are frozen (deeplab_multi.py:203-209); the
+    warmup stage trains them at 1x (``warmup=True``). Every BatchNorm's affine
+    parameters (requires_grad=False in the reference) and the ASPP branches the
+    2-branch quirk never uses are frozen in both stages. Frozen parameters get
     ``requires_grad=False`` and no optimizer.
   - NTM T1/T2 and W1/W2: four ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8, no weight
     decay; trainV2_simt.py:270-280).
@@ -35,10 +36,10 @@ _STEM = ("conv1", "bn1", "layer1", "layer2")  # trained in the warmup stage only
 _ASPP_BRANCHES = 2
 
 
-def param_label(name: str) -> str:
-    """SimT-stage LR group of one parameter of ``ResNetMulti``, by its
-    ``named_parameters`` name: the rules of the JAX package's ``param_label``
-    (simt_tpu/train/state.py:60-83, ``warmup=False``) on the reference's module names."""
+def param_label(name: str, *, warmup: bool = False) -> str:
+    """LR group of one parameter of ``ResNetMulti``, by its ``named_parameters`` name,
+    in the SimT stage or (``warmup``) the warmup stage: the rules of the JAX package's
+    ``param_label`` (simt_tpu/train/state.py:60-83) on the reference's module names."""
     parts = name.split(".")
     mods = parts[:-1]
     if mods and (mods[-1].startswith("bn") or mods[-2:] == ["downsample", "1"]):
@@ -48,23 +49,25 @@ def param_label(name: str) -> str:
     if parts[0] in _HEADS:
         return LABEL_10X
     if parts[0] in _STEM:
-        return LABEL_FROZEN
+        return LABEL_1X if warmup else LABEL_FROZEN
     return LABEL_1X  # layer3 / layer4
 
 
-def param_groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
+def param_groups(model: nn.Module, *,
+                 warmup: bool = False) -> Dict[str, List[nn.Parameter]]:
     """The model's parameters listed by ``param_label``, in ``named_parameters`` order."""
     groups: Dict[str, List[nn.Parameter]] = {LABEL_1X: [], LABEL_10X: [], LABEL_FROZEN: []}
     for name, p in model.named_parameters():
-        groups[param_label(name)].append(p)
+        groups[param_label(name, warmup=warmup)].append(p)
     return groups
 
 
-def make_model_optimizer(model: nn.Module, momentum: float,
-                         weight_decay: float) -> torch.optim.SGD:
-    """SGD over the 1x and 10x groups (``param_groups[i]["lr_mult"]`` 1 and 10); frozen
-    parameters are set ``requires_grad=False``. The caller sets each group's ``lr``."""
-    groups = param_groups(model)
+def make_model_optimizer(model: nn.Module, momentum: float, weight_decay: float, *,
+                         warmup: bool = False) -> torch.optim.SGD:
+    """SGD over the 1x and 10x groups (``param_groups[i]["lr_mult"]`` 1 and 10) of the
+    SimT stage or (``warmup``) the warmup stage; frozen parameters are set
+    ``requires_grad=False``. The caller sets each group's ``lr``."""
+    groups = param_groups(model, warmup=warmup)
     for p in groups[LABEL_FROZEN]:
         p.requires_grad_(False)
     return torch.optim.SGD(
@@ -85,6 +88,15 @@ class NTMState:
 
     param: nn.Parameter
     opt: torch.optim.Adam
+
+
+@dataclasses.dataclass
+class WarmupState:
+    """What a warmup step reads and updates; ``step`` is a host integer."""
+
+    model: nn.Module
+    model_opt: torch.optim.SGD
+    step: int = 0
 
 
 @dataclasses.dataclass

@@ -1,0 +1,121 @@
+"""Warmup-stage trainer, stage 1 (counterpart of ``simt_tpu/train/warmup.py``).
+
+One call of the step does what the reference does per iteration
+(tools/trainV1_warmup.py:204-232):
+
+  - the forward of both heads in train mode (BatchNorm updates its running statistics
+    from the batch, as flax's ``mutable=["batch_stats"]``);
+  - per head the align-corners upsample to the crop and the masked CE mean, streamed
+    (``ops/fused_losses.py::upsample_ce``; logits already at the label's size take the
+    plain ``cross_entropy_2d``, :75-81 of the JAX step);
+  - ``loss = l2 + lambda_seg * l1`` (:222-224), divided by ``iter_size`` per sub-batch,
+    the sub-batches on a leading axis (:212, :226-232), with the JAX step's metric
+    conventions;
+  - one SGD step at the poly rate of the host-side step count, 1x for the trunk
+    (stem and layers 1-2 included) and 10x for the heads.
+
+The step never waits for the card: the metrics come back as 0-d tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..data.pipeline import normalize_image
+from ..ops.fused_losses import upsample_ce
+from ..ops.losses import cross_entropy_2d
+from ..ops.schedules import poly_lr
+from .state import WarmupState, make_model_optimizer
+
+
+def create_warmup_state(model: nn.Module, cfg,
+                        device: torch.device = torch.device("cuda")) -> WarmupState:
+    """The warmup train state: ``model`` on ``device`` (in ``channels_last`` on a card)
+    in train mode, and SGD over its warmup groups (``param_label(warmup=True)``)."""
+    device = torch.device(device)
+    fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    model.to(device=device, memory_format=fmt).train()
+    opt = make_model_optimizer(model, cfg.optim.momentum, cfg.optim.weight_decay,
+                               warmup=True)
+    return WarmupState(model=model, model_opt=opt)
+
+
+class WarmupStep:
+    """The warmup train step: ``step(state, batch) -> metrics`` {loss_seg1, loss_seg2,
+    lr}, updating ``state`` in place. ``batch``: ``image`` (B, H, W, 3) mean-subtracted
+    BGR float32 (or uint8) and ``label`` (B, H, W) integer, with a leading
+    ``iter_size`` axis when ``iter_size > 1``; numpy arrays or tensors.
+
+    ``spans``: None (default) or a list to which each call appends ``(name, start,
+    end)`` CUDA events around its parts (forward, backward, optimizer); read them after
+    a synchronize.
+    """
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        if self.spans is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.spans.append((name, start, end))
+
+    def _losses(self, model: nn.Module, image: torch.Tensor,
+                label: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        ignore = cfg.ignore_label
+        x1, x2 = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        x1, x2 = x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)
+        if x1.shape[1:3] == label.shape[1:]:
+            # Logits already at the input's size: plain masked CE, no upsample.
+            return (cross_entropy_2d(x1, label, ignore_label=ignore),
+                    cross_entropy_2d(x2, label, ignore_label=ignore))
+        chunk = cfg.simt.loss_chunk_rows
+        return (upsample_ce(x1, label, ignore_label=ignore, chunk_rows=chunk),
+                upsample_ce(x2, label, ignore_label=ignore, chunk_rows=chunk))
+
+    def __call__(self, st: WarmupState, batch: Dict) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        dev = next(st.model.parameters()).device
+        lr = poly_lr(cfg.optim.learning_rate, st.step, cfg.optim.num_steps, cfg.optim.power)
+        for group in st.model_opt.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+        st.model_opt.zero_grad(set_to_none=True)
+        iter_size = cfg.optim.iter_size
+        l1_sum = l2_sum = None
+        for i in range(iter_size):
+            sub = batch if iter_size == 1 else {k: v[i] for k, v in batch.items()}
+            image = normalize_image(torch.as_tensor(sub["image"], device=dev),
+                                    cfg.data.mean_bgr)
+            label = torch.as_tensor(sub["label"], device=dev)
+            with self._span("forward"):
+                l1, l2 = self._losses(st.model, image, label)
+                loss = (l2 + cfg.simt.lambda_seg * l1) / iter_size
+            with self._span("backward"):
+                loss.backward()
+            l1, l2 = l1.detach(), l2.detach()
+            if iter_size == 1:
+                l1_sum, l2_sum = l1, l2
+            else:  # the metric accumulation scale of trainV1_warmup.py:229-230
+                l1_sum = l1 / iter_size if l1_sum is None else l1_sum + l1 / iter_size
+                l2_sum = l2 / iter_size if l2_sum is None else l2_sum + l2 / iter_size
+        with self._span("optimizer"):
+            st.model_opt.step()
+        st.step += 1
+        return {"loss_seg1": l1_sum, "loss_seg2": l2_sum, "lr": torch.tensor(lr)}
+
+
+def make_warmup_step(cfg) -> WarmupStep:
+    """The warmup train step for ``cfg`` (a ``TrainConfig``)."""
+    return WarmupStep(cfg)

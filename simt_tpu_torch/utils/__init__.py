@@ -1,1 +1,1 @@
-from .logging import format_simt_line
+from .logging import format_simt_line, format_warmup_line

@@ -16,3 +16,9 @@ def format_simt_line(i_iter: int, num_steps: int, m: Mapping) -> str:
             float(m["convex"]), float(m["volume"]), float(m["anchor"]),
             float(m["place"]))
     )
+
+
+def format_warmup_line(i_iter: int, num_steps: int, m: Mapping) -> str:
+    """The trainV1_warmup.py:235-237 line; ``m`` as for ``format_simt_line``."""
+    return "iter = {0:8d}/{1:8d}, loss_seg1 = {2:.3f} loss_seg2 = {3:.3f}".format(
+        i_iter, num_steps, float(m["loss_seg1"]), float(m["loss_seg2"]))
