@@ -12,12 +12,14 @@ Phases (any failure exits non-zero before the last line is printed):
      with all labels ignored, every pixel unknown, a 37x301 output from 6x39 logits
      and a planted anchor tie across blocks and images; the trunk's dilated 3x3 conv
      (B4 forward and input gradient, B5 weight gradient) at the four trunk geometries
-     in bf16 at batch 1 and 2, in float32 at a small one, and on edge cases (3 -> 5
+     of a 512x1024 input in bf16 at batch 1 and 2, at those of the eval path's 640x1280
+     input at batch 1, in float32 at a small one, and on edge cases (3 -> 5
      channels on 13x10, padding wider than a 3x5 image, channel counts off the tiles);
   3. small-input checks, float32 on the card against the CPU: the whole evaluation,
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
      inner_w_steps 3) and three warmup steps at the same geometry (closed set);
-  4. main paths, each with every launch count zeroed just before and read just after:
+  4. main paths, each with every launch count zeroed just before and read just after
+     (each count must equal the path's own, 0 for a kernel it does not run):
      the two-scale ``evaluate(device="cuda")`` of a full-width open-set
      DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; the SimT train step of
      ``tools/train_simt.py`` (full-width student and teacher with seeded random
@@ -197,24 +199,20 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
               mode="simt", return_hist=True, device="cuda", print_fn=lambda s: None)
     evaluate(model, **kw)  # warm-up: cuDNN plans, allocator
     lines = []
-    reset_conv_counts()
-    eval_fused.multiscale_argmax_hist.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     miou, hist = evaluate(model, **dict(kw, print_fn=lines.append))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist.launches,
-                **conv_counts()}
+    launches = read_counts()
     print(lines[-1])
     print(f"main path: evaluate(simt, two scales, {OUT_HW[0]}x{OUT_HW[1]}) over "
           f"{N_IMAGES} images: {seconds:.3f} s, {N_IMAGES / seconds:.3f} img/s, "
-          f"mIoU {miou}, launches {launches}")
-    if launches["multiscale_argmax_hist"] != N_IMAGES:
-        fail(f"eval_fused launched {launches['multiscale_argmax_hist']} times for "
-             f"{N_IMAGES} images")
-    # Two scales a image, one B4 forward for each of the 33 bottlenecks; no gradient.
-    check_conv_counts("eval", launches, fwd=2 * N_CONV2 * N_IMAGES, wgrad=0)
+          f"mIoU {miou}")
+    # One B1 a image; two scales a image, one B4 forward for each of the 33 bottlenecks.
+    check_counts("eval", launches, {"multiscale_argmax_hist": N_IMAGES,
+                                    "conv3x3_fwd": 2 * N_CONV2 * N_IMAGES})
     if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
         fail(f"main path histogram total {hist.sum()} or mIoU {miou} is wrong")
     return launches, seconds
@@ -451,58 +449,95 @@ def phase_train_main_path(tmp: str) -> dict:
     torch.cuda.synchronize()
     print(f"train set-up (models, state, {len(batches)} synthetic 512x1024 batches): "
           f"{time.perf_counter() - t0:.1f} s")
-    # Warm-up: cuDNN plans, allocator, kernel tables.
-    metrics = [step(state, batches[i % len(batches)]) for i in range(2)]
+    want = TIMED_STEPS * cfg.optim.iter_size
+    # One B2 and one B3 a sub-batch. Student and teacher forwards (33 each); the input
+    # gradient and the weight gradient of the trained blocks only (layers 3-4: 26;
+    # layers 1-2 are frozen in this stage).
+    return drive_train_path(
+        "SimT", step, state, batches,
+        lambda i, v: train_simt.format_simt_line(i, cfg.num_steps, v)
+        + f" loss = {v['loss']:.4f}",
+        {"loss_core_fwd": want, "loss_core_bwd": want,
+         "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * want,
+         "conv3x3_wgrad": N_CONV2_L34 * want})
+
+
+# Every kernel wrapper of the package, by name; each counts its own launches.
+COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
+           "loss_core_fwd": loss_fused.loss_core_fwd,
+           "loss_core_bwd": loss_fused.loss_core_bwd,
+           "conv3x3_fwd": conv3x3.conv3x3_fwd,
+           "conv3x3_wgrad": conv3x3.conv3x3_wgrad}
+
+
+def reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def check_counts(path: str, launches: dict, want: dict) -> None:
+    """Fails unless every kernel launched as often as ``want`` says (0 if absent)."""
+    want = {name: want.get(name, 0) for name in COUNTED}
+    print(f"{path} main path launches: {launches} (want {want})")
+    if launches != want:
+        fail(f"{path}: launches {launches}, want {want}")
+
+
+def timed_steps(step, state, batches, n: int = TIMED_STEPS, first: int = 0):
+    """``n`` steps on ``batches[first:]`` (cyclic): (wall ms per step, their metrics)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(state, batches[(first + i) % len(batches)]) for i in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, metrics
+
+
+def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
+    """One train main path after its set-up: 2 warm-up steps; every launch count zeroed,
+    TIMED_STEPS timed steps with their CUDA-event spans, the counts read and held to
+    ``want``; every step's metric line (``line(i, values)``), all finite; 3 profiled
+    steps for the device busy share; the A/B against conv2 on cuDNN."""
+    metrics = [step(state, batches[i % len(batches)]) for i in range(2)]  # cuDNN plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    loss_fused.loss_core_fwd.launches = 0
-    loss_fused.loss_core_bwd.launches = 0
-    reset_conv_counts()
+    reset_counts()
     step.spans = []
-    t0 = time.perf_counter()
-    for i in range(TIMED_STEPS):
-        metrics.append(step(state, batches[(2 + i) % len(batches)]))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"loss_core_fwd": loss_fused.loss_core_fwd.launches,
-                "loss_core_bwd": loss_fused.loss_core_bwd.launches, **conv_counts()}
+    wall_ms, timed = timed_steps(step, state, batches, first=2)
+    launches = read_counts()
     parts = {}
     for name, start, end in step.spans:
         parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
     step.spans = None
-    for i, m in enumerate(metrics):  # the warm-up steps' lines too
+    for i, m in enumerate(metrics + timed):  # the warm-up steps' lines too
         vals = {k: float(v) for k, v in m.items()}
-        print(train_simt.format_simt_line(i, cfg.num_steps, vals)
-              + f" loss = {vals['loss']:.4f}")
+        print(line(i, vals))
         if not all(math.isfinite(v) for v in vals.values()):
-            fail(f"train step {i}: non-finite metrics {vals}")
-    want = TIMED_STEPS * cfg.optim.iter_size
-    print(f"main path: SimT train step, full width, batch 1, 512x1024, bf16 autocast: "
-          f"{TIMED_STEPS} steps in {seconds:.3f} s, {TIMED_STEPS / seconds:.3f} steps/s, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches}")
-    print("train step parts (CUDA events, ms per step): "
+            fail(f"{path} step {i}: non-finite metrics {vals}")
+    print(f"main path: {path} train step, full width, batch 1, 512x1024, bf16 autocast: "
+          f"{TIMED_STEPS} steps, {wall_ms:.3f} ms per step, {1e3 / wall_ms:.3f} steps/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{path} step parts (CUDA events, ms per step): "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-          + f"; sum {sum(parts.values()):.3f}, wall {seconds / TIMED_STEPS * 1e3:.3f}")
-    if launches["loss_core_fwd"] != want or launches["loss_core_bwd"] != want:
-        fail(f"loss core launched {launches} times for {want} sub-batch steps")
-    # Student and teacher forwards (33 each); the input gradient and the weight gradient
-    # of the trained blocks only (layers 3-4: 26; layers 1-2 are frozen in this stage).
-    check_conv_counts("SimT", launches, fwd=(2 * N_CONV2 + N_CONV2_L34) * want,
-                      wgrad=N_CONV2_L34 * want)
+          + f"; sum {sum(parts.values()):.3f}, wall {wall_ms:.3f}")
+    check_counts(path, launches, want)
     device_ms = profile_steps(step, state, batches)
-    print(f"train step device busy share: {device_ms:.3f} ms of kernels per step (profiler)"
-          f" over {seconds / TIMED_STEPS * 1e3:.3f} ms wall per step (timed run) = "
-          f"{device_ms / (seconds / TIMED_STEPS * 1e3):.3f}")
-    conv2_ab("SimT", step, state, batches)
-    return {"launches": launches, "seconds": seconds, "parts": parts,
+    print(f"{path} step device busy share: {device_ms:.3f} ms of kernels per step "
+          f"(profiler) over {wall_ms:.3f} ms wall per step (timed run) = "
+          f"{device_ms / wall_ms:.3f}")
+    conv2_ab(path, step, state, batches)
+    return {"launches": launches, "wall_ms": wall_ms, "parts": parts,
             "device_ms": device_ms}
 
 
-def profile_steps(step, state, batches, n: int = 3,
+def profile_steps(step, state, batches, n: int = 3, report: bool = True,
                   ours=("loss_fwd", "loss_bwd", "conv3x3")) -> float:
-    """Kernel time per step from torch.profiler over ``n`` more steps, with the kernels
-    that take the most of it and those of this package (names containing ``ours``)."""
+    """Kernel time per step from torch.profiler over ``n`` more steps; with ``report``,
+    prints the kernels that take the most of it and those of this package (names
+    containing ``ours``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -516,6 +551,8 @@ def profile_steps(step, state, batches, n: int = 3,
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
     total = sum(by_name.values())
+    if not report:
+        return total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"train step kernels (profiler, ms per step, {len(kernels) / n:.0f} launches per "
           f"step, total {total:.3f}): " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
@@ -593,24 +630,9 @@ TRUNK = (("layer1", 129, 257, 64, 1, 3), ("layer2", 65, 129, 128, 1, 4),
 # difference). float32 outputs: 1e-5 of the max (summation order). dw (float32 in
 # both): 1e-4 of the max (sums of up to 66k terms in another order).
 TOL_CONV_BF16, TOL_CONV_F32, TOL_WGRAD = 2.0 ** -7, 1e-5, 1e-4
-
-
-def reset_conv_counts() -> None:
-    conv3x3.conv3x3_fwd.launches = 0
-    conv3x3.conv3x3_wgrad.launches = 0
-
-
-def conv_counts() -> dict:
-    return {"conv3x3_fwd": conv3x3.conv3x3_fwd.launches,
-            "conv3x3_wgrad": conv3x3.conv3x3_wgrad.launches}
-
-
-def check_conv_counts(path: str, launches: dict, *, fwd: int, wgrad: int) -> None:
-    got = (launches["conv3x3_fwd"], launches["conv3x3_wgrad"])
-    print(f"{path} main path: B4 launched {got[0]} times (want {fwd}), B5 {got[1]} "
-          f"(want {wgrad})")
-    if got != (fwd, wgrad):
-        fail(f"{path}: conv3x3 launches {got}, want {(fwd, wgrad)}")
+# (name, H, W, channels, dilation) of the same stages at the eval path's 640x1280 scale.
+TRUNK_EVAL_640 = (("layer1", 161, 321, 64, 1), ("layer2", 81, 161, 128, 1),
+                  ("layer3", 81, 161, 256, 2), ("layer4", 81, 161, 512, 4))
 
 
 def conv_inputs(batch: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
@@ -636,6 +658,8 @@ def phase_conv_kernels_vs_plain() -> dict:
     for name, h, w, c, d, _ in TRUNK:
         for b in (1, 2):
             cases[f"{name}_b{b}"] = (b, h, w, c, c, d, torch.bfloat16)
+    for name, h, w, c, d in TRUNK_EVAL_640:
+        cases[f"eval640_{name}_b1"] = (1, h, w, c, c, d, torch.bfloat16)
     cases.update({
         "f32_17x23_32to48_d2": (2, 17, 23, 32, 48, 2, torch.float32),
         "edge_13x10_3to5_d2": (2, 13, 10, 3, 5, 2, torch.bfloat16),
@@ -697,27 +721,6 @@ def plain_conv2(x, w, d):
         return conv3x3.conv3x3_taps(x, w, d)
 
 
-def _timed_ms(step, state, batches, n: int = TIMED_STEPS) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        step(state, batches[i % len(batches)])
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e3
-
-
-def _device_ms(step, state, batches, n: int = 3) -> float:
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            step(state, batches[i % len(batches)])
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation) / 1e3 / n
-
-
 def conv2_ab(path: str, step, state, batches) -> dict:
     """The train step with conv2 on B4/B5 against the same step with conv2 on cuDNN
     (the yardstick), in turns kernels, cuDNN, cuDNN, kernels within this call: wall
@@ -727,10 +730,10 @@ def conv2_ab(path: str, step, state, batches) -> dict:
         ctx = conv2_through(cudnn_conv2) if mode == "cudnn" else contextlib.nullcontext()
         with ctx:
             step(state, batches[0])  # cuDNN plans, allocator
-            wall[mode].append(_timed_ms(step, state, batches))
-    dev = {"kernels": _device_ms(step, state, batches)}
+            wall[mode].append(timed_steps(step, state, batches)[0])
+    dev = {"kernels": profile_steps(step, state, batches, report=False)}
     with conv2_through(cudnn_conv2):
-        dev["cudnn"] = _device_ms(step, state, batches)
+        dev["cudnn"] = profile_steps(step, state, batches, report=False)
     print(f"{path} step, conv2 on B4/B5 vs on cuDNN (yardstick), in turns: wall ms per "
           f"step kernels {wall['kernels'][0]:.3f}/{wall['kernels'][1]:.3f}, cuDNN "
           f"{wall['cudnn'][0]:.3f}/{wall['cudnn'][1]:.3f}; device ms per step (profiler) "
@@ -771,7 +774,7 @@ WARMUP_WATCH = ("conv1.weight", "layer1.0.conv2.weight")  # a stem and a layer1 
 def warmup_golden_config() -> TrainConfig:
     """The golden geometry's closed-set warmup: C5, float32."""
     return TrainConfig(model=ModelConfig(num_classes=5, compute_dtype="float32"),
-                       optim=OptimConfig(num_steps=1000), stage="warmup")
+                       optim=OptimConfig(num_steps=1000))
 
 
 def phase_warmup_small_steps() -> None:
@@ -823,48 +826,18 @@ def phase_warmup_main_path() -> dict:
     batches = train_simt.synthetic_batches(cfg, cfg.num_steps_stop, torch.device("cuda"))
     step = make_warmup_step(cfg)
     torch.cuda.synchronize()
-    print(f"warmup set-up (model, state, {len(batches)} synthetic 512x1024 batches): "
-          f"{time.perf_counter() - t0:.1f} s")
-    metrics = [step(state, batches[i % len(batches)]) for i in range(2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_conv_counts()
-    step.spans = []
-    t0 = time.perf_counter()
-    for i in range(TIMED_STEPS):
-        metrics.append(step(state, batches[(2 + i) % len(batches)]))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = conv_counts()
-    parts = {}
-    for name, start, end in step.spans:
-        parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
-    step.spans = None
-    for i, m in enumerate(metrics):
-        vals = {k: float(v) for k, v in m.items()}
-        print(format_warmup_line(i, cfg.num_steps, vals))
-        if not all(math.isfinite(v) for v in vals.values()):
-            fail(f"warmup step {i}: non-finite metrics {vals}")
-    print(f"main path: warmup train step, full width (closed set), batch 1, 512x1024, "
-          f"bf16 autocast: {TIMED_STEPS} steps in {seconds:.3f} s, "
-          f"{TIMED_STEPS / seconds:.3f} steps/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
-    print("warmup step parts (CUDA events, ms per step): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-          + f"; sum {sum(parts.values()):.3f}, wall {seconds / TIMED_STEPS * 1e3:.3f}")
+    print(f"warmup set-up (closed-set model, state, {len(batches)} synthetic 512x1024 "
+          f"batches): {time.perf_counter() - t0:.1f} s")
     # Every bottleneck trains in this stage: forward, input gradient and weight gradient.
     want = TIMED_STEPS * cfg.optim.iter_size
-    check_conv_counts("warmup", launches, fwd=2 * N_CONV2 * want, wgrad=N_CONV2 * want)
-    device_ms = profile_steps(step, state, batches)
-    print(f"warmup step device busy share: {device_ms:.3f} ms of kernels per step "
-          f"(profiler) over {seconds / TIMED_STEPS * 1e3:.3f} ms wall per step (timed "
-          f"run) = {device_ms / (seconds / TIMED_STEPS * 1e3):.3f}")
-    conv2_ab("warmup", step, state, batches)
+    out = drive_train_path("warmup", step, state, batches,
+                           lambda i, v: format_warmup_line(i, cfg.num_steps, v),
+                           {"conv3x3_fwd": 2 * N_CONV2 * want,
+                            "conv3x3_wgrad": N_CONV2 * want})
     del state
     torch.cuda.empty_cache()
     warmup_vs_plain_conv(cfg, batches)
-    return {"launches": launches, "seconds": seconds, "parts": parts,
-            "device_ms": device_ms}
+    return out
 
 
 def phase_conv_times(paths: dict, worst: dict) -> list:

@@ -24,6 +24,9 @@ OPEN_CLASSES = 15  # open-set placeholder classes (sh_simt.sh:17)
 EVAL_SCALES: Tuple[Tuple[int, int], ...] = ((1024, 512), (1280, 640))
 EVAL_OUT_HW: Tuple[int, int] = (1024, 2048)
 
+# The presets of the warmup stage (stage 1); the others are the SimT stage's.
+WARMUP_PRESETS: Tuple[str, ...] = ("warmup_bapa",)
+
 ASSETS_DIR = os.path.join(os.path.dirname(__file__), "data", "assets")
 
 
@@ -43,9 +46,6 @@ class ModelConfig:
 
     num_classes: int = NUM_CLASSES  # NUM_CLASSES, trainV2_simt.py:50
     open_classes: int = OPEN_CLASSES  # sh_simt.sh:17 (module default 15, :51)
-    # Open-set heads (layer5_1 / layer6_1): the SimT stage's student; the warmup
-    # network is closed-set (trainV1_warmup.py).
-    openset: bool = False
     # "bfloat16": convolutions under bf16 autocast, float32 parameters and head sums;
     # "float32": everything in float32.
     compute_dtype: str = "bfloat16"
@@ -103,7 +103,6 @@ class TrainConfig:
     random_seed: int = 1234  # RANDOM_SEED :55
     restore_from: str = ""
     ignore_label: int = 255
-    stage: str = "simt"  # "warmup" (trainV1_warmup.py) or "simt" (trainV2_simt.py)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -123,13 +122,11 @@ def preset(name: str) -> TrainConfig:
     """
     base = TrainConfig()
     if name == "warmup_bapa":
-        return base.replace(stage="warmup", num_steps_stop=150_000,
-                            model=dataclasses.replace(base.model, openset=False))
+        return base.replace(num_steps_stop=150_000)
     lrs = {"simt_bapa_lr25": (2.5e-4, 2.5e-3), "simt_bapa_lr6": (6e-4, 6e-3),
            "simt_sfda": (2.5e-4, 2.5e-3)}
     if name not in lrs:
         raise ValueError(f"unknown preset: {name!r}")
     lr, lr_t = lrs[name]
     return base.replace(
-        stage="simt", model=dataclasses.replace(base.model, openset=True),
         optim=dataclasses.replace(base.optim, learning_rate=lr, learning_rate_t=lr_t))

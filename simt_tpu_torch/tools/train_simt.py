@@ -56,6 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_config(args) -> config_lib.TrainConfig:
+    if args.preset in config_lib.WARMUP_PRESETS:
+        raise ValueError(f"preset {args.preset!r} is a warmup preset")
     cfg = config_lib.preset(args.preset) if args.preset else config_lib.TrainConfig()
     optim, model, data = cfg.optim, cfg.model, cfg.data
     if args.iter_size is not None:

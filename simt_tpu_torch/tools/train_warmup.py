@@ -51,9 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_config(args) -> config_lib.TrainConfig:
-    cfg = config_lib.preset(args.preset)
-    if cfg.stage != "warmup":
+    if args.preset not in config_lib.WARMUP_PRESETS:
         raise ValueError(f"preset {args.preset!r} is not a warmup preset")
+    cfg = config_lib.preset(args.preset)
     optim, model, data = cfg.optim, cfg.model, cfg.data
     if args.iter_size is not None:
         optim = dataclasses.replace(optim, iter_size=args.iter_size)
@@ -71,12 +71,10 @@ def build_config(args) -> config_lib.TrainConfig:
 
 
 def build_model(cfg):
-    """Full-depth DeepLabv2-ResNet-101 (closed set unless ``cfg.model.openset``) with the
-    seeded reference init, or the ``restore_from`` .pth loaded by key intersection."""
+    """Full-depth closed-set DeepLabv2-ResNet-101 (trainV1_warmup.py) with the seeded
+    reference init, or the ``restore_from`` .pth loaded by key intersection."""
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
-    m = cfg.model
-    model = deeplab_multi(m.num_classes, m.open_classes if m.openset else 0,
-                          openset=m.openset, dtype=dtype)
+    model = deeplab_multi(cfg.model.num_classes, 0, openset=False, dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(cfg.random_seed))
     if cfg.restore_from:
         rep = load_matching(model, load_pth(cfg.restore_from))

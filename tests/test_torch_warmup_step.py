@@ -54,7 +54,7 @@ def _configs(**optim):
                                            compute_dtype="float32"),
                         optim=JOptimConfig(**optim), stage="warmup")
     tcfg = TrainConfig(model=ModelConfig(num_classes=C, compute_dtype="float32"),
-                       optim=OptimConfig(**optim), stage="warmup")
+                       optim=OptimConfig(**optim))
     return jcfg, tcfg
 
 
@@ -256,5 +256,8 @@ def test_warmup_cli_runs_on_the_cpu(capsys):
     assert conv3x3.conv3x3_fwd.launches == conv3x3.conv3x3_wgrad.launches == 0
     assert out["state"].model.layer5_1 is None  # closed set
     cfg = build_config(build_parser().parse_args(["--synthetic"]))
-    assert cfg.stage == "warmup" and cfg.num_steps_stop == 150_000
-    assert not cfg.model.openset and dataclasses.asdict(cfg)["optim"]["iter_size"] == 1
+    assert cfg.num_steps_stop == 150_000
+    assert dataclasses.asdict(cfg)["optim"]["iter_size"] == 1
+    with pytest.raises(ValueError, match="not a warmup preset"):
+        build_config(build_parser().parse_args(["--synthetic", "--preset",
+                                                "simt_bapa_lr25"]))
