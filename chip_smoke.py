@@ -15,6 +15,11 @@ Phases (any failure exits non-zero before the last line is printed):
      of a 512x1024 input in bf16 at batch 1 and 2, at those of the eval path's 640x1280
      input at batch 1, in float32 at a small one, and on edge cases (3 -> 5
      channels on 13x10, padding wider than a 3x5 image, channel counts off the tiles);
+     the fused train-mode bottleneck (B6 forward, B7 backward) at the four trunk
+     identity-block geometries and on edge cases (an odd 9x13 image, dilation 4 on a
+     3x5 image, 36/9 channels off the vector width), each run twice and bitwise equal;
+     one fused forward + backward at layer3 under the profiler, which must show no
+     kernel but the package's own (and fills);
   3. small-input checks, float32 on the card against the CPU: the whole evaluation,
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
      inner_w_steps 3) and three warmup steps at the same geometry (closed set);
@@ -29,6 +34,9 @@ Phases (any failure exits non-zero before the last line is printed):
      their parts, then 3 profiled steps for the device busy share, then the same step
      with every conv2 on cuDNN (a yardstick the port never calls) timed in turns
      against it; and three full-width warmup steps against conv2 on the plain taps;
+     the benchmark path of ``tools/bench_fused_bottleneck.py`` at layer3 (the fused
+     block against the composed module, 10 calls a chain), and the same module with
+     conv2 on cuDNN;
   5. times: per-scale forward (and with conv2 on cuDNN), each kernel against its
      plain version, its bound and, where one exists, a library call computing the
      same function.
@@ -65,10 +73,11 @@ from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_bat
 from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
 from simt_tpu_torch.models import layers  # noqa: E402
+from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
 from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
-from simt_tpu_torch.ops.kernels import conv3x3, eval_fused, loss_fused  # noqa: E402
-from simt_tpu_torch.tools import train_simt, train_warmup  # noqa: E402
+from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
+from simt_tpu_torch.tools import bench_fused_bottleneck, train_simt, train_warmup  # noqa: E402
 from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
                                   make_simt_step, make_warmup_step)
 from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
@@ -467,7 +476,9 @@ COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
            "loss_core_fwd": loss_fused.loss_core_fwd,
            "loss_core_bwd": loss_fused.loss_core_bwd,
            "conv3x3_fwd": conv3x3.conv3x3_fwd,
-           "conv3x3_wgrad": conv3x3.conv3x3_wgrad}
+           "conv3x3_wgrad": conv3x3.conv3x3_wgrad,
+           "bottleneck_fwd": bottleneck.bottleneck_fwd,
+           "bottleneck_bwd": bottleneck.bottleneck_bwd}
 
 
 def reset_counts() -> None:
@@ -911,6 +922,248 @@ def phase_conv_times(paths: dict, worst: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------------
+# The fused train-mode bottleneck (B6/B7) and its benchmark path
+# ---------------------------------------------------------------------------------
+
+# (name, H, W, trunk channels Ct, planes P, dilation) of the trunk's identity blocks at a
+# 512x1024 crop.
+BNECK = (("layer1", 129, 257, 256, 64, 1), ("layer2", 65, 129, 512, 128, 1),
+         ("layer3", 65, 129, 1024, 256, 2), ("layer4", 65, 129, 2048, 512, 4))
+# Edge cases (H, W, Ct, P, d): an odd image; dilation 4 on a 3x5 image (every 3x3 tap
+# but the centre falls off it); channel counts off the kernels' 8-element vector width,
+# which the kernels take on their scalar load path.
+BNECK_EDGE = {"edge_odd_9x13": (9, 13, 64, 16, 2), "edge_d4_on_3x5": (3, 5, 32, 8, 4),
+              "edge_off_vector_36_9": (9, 11, 36, 9, 1)}
+# Tolerances of B6/B7 against their plain versions on the same inputs. Both sum exactly
+# representable bf16 products in float32 in other orders, so each rounded conv output
+# (h1raw, h2raw, outraw) may land one bf16 ulp apart, and BatchNorm passes that on:
+#   - the output 2**-6 of its max, two bf16 ulps: its own rounding plus one ulp of
+#     outraw scaled by a3, whose normalised value stays below the output's max (one ulp,
+#     2**-7, was measured exceeded at layer3: 8.26e-3);
+#   - each statistics vector 1e-3, or 2**-5/m on an image of m < 32 pixels: a variance
+#     of its max, a mean of the largest RMS of the values it averages,
+#     sqrt(var + mean^2) (a mean of centred values is near 0, so its own max is no
+#     scale). One value of m that rounds one ulp apart moves a mean by up to 2**-7/m and
+#     a variance by up to 2**-6/m of that scale; on the 15-pixel 3x5 image that gave
+#     1.2e-3 for v3, so the limit there allows two such values;
+#   - each of the ten gradients 2**-6 of its max (the same flips through three stages).
+TOL_BNECK_OUT, TOL_BNECK_STATS, TOL_BNECK_GRAD = 2.0 ** -6, 1e-3, 2.0 ** -6
+TOL_BNECK_STATS_PER_PIXEL = 2.0 ** -5
+STAT_NAMES = ("m1", "v1", "m2", "v2", "m3", "v3")
+BENCH_REPS = 10
+BENCH_GEOMETRY = "65,129,256,1024,2"  # layer3: h, w, planes, trunk, dilation
+GRAD_NAMES = ("dx", "dw1", "dw2", "dw3", "dg1", "db1", "dg2", "db2", "dg3", "db3")
+LIBRARY_KERNEL_WORDS = ("gemm", "cublas", "cudnn", "xmma", "cutlass")
+
+
+def bneck_inputs(h: int, w: int, ct: int, p: int, gen: torch.Generator):
+    """x (1, Ct, H, W) bf16 channels_last, OIHW float32 weights N(0, 0.05^2) (the JAX
+    benchmark's scale), BN scale 1 + N(0, 0.1^2) and bias N(0, 0.1^2)."""
+    x = torch.randn(1, ct, h, w, device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    ws = [torch.randn(*shape, device="cuda", generator=gen) * 0.05
+          for shape in ((p, ct, 1, 1), (p, p, 3, 3), (ct, p, 1, 1))]
+    vecs = []
+    for i, n in enumerate((p, p, p, p, ct, ct)):
+        r = torch.randn(n, device="cuda", generator=gen) * 0.1
+        vecs.append(1.0 + r if i % 2 == 0 else r)
+    return x, ws, vecs
+
+
+def _grads_flat(res) -> list:
+    """(dx, dw1, dw2, dw3, dgb_p, dgb_t) -> the ten gradients."""
+    dx, dw1, dw2, dw3, dgb_p, dgb_t = res
+    return [dx, dw1, dw2, dw3, *dgb_p.unbind(), *dgb_t.unbind()]
+
+
+def phase_bneck_kernels_vs_plain() -> dict:
+    """B6 and B7 against bottleneck_fwd_plain / bottleneck_bwd_plain on the same inputs
+    (B7 and its plain version both take B6's saved h1raw, h2raw and statistics), with
+    the cotangent dy = 2*out of sum(out^2); each kernel run twice, bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = {name: (h, w, ct, p, d) for name, h, w, ct, p, d in BNECK}
+    cases.update(BNECK_EDGE)
+    worst = {"match": True, "cases": {}}
+    for name, (h, w, ct, p, d) in cases.items():
+        x, ws, vecs = bneck_inputs(h, w, ct, p, gen)
+        got = bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
+        want = bottleneck.bottleneck_fwd_plain(x, *ws, *vecs, d)
+        dy = (2.0 * got[0].float()).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        saved = (got[1], got[2], got[3], got[4], d)
+        gb = bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved)
+        wb = bottleneck.bottleneck_bwd_plain(dy, x, *ws, *vecs, *saved)
+        again = (bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
+                 + bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved))
+        torch.cuda.synchronize()
+        repeat_equal = all(torch.equal(a, b) for a, b in zip(got + gb, again))
+        err = {"out": _max_rel(got[0], want[0]), "stats": {}}
+        stats = [*got[3].unbind(), *got[4].unbind()]
+        stats_want = [*want[3].unbind(), *want[4].unbind()]
+        for i, n in enumerate(STAT_NAMES):
+            diff = float((stats[i] - stats_want[i]).abs().max())
+            mean, var = stats_want[i - i % 2], stats_want[i - i % 2 + 1]
+            scale = (var + mean * mean).sqrt() if i % 2 == 0 else var.abs()
+            err["stats"][n] = diff / max(float(scale.max()), 1e-30)
+        grads = {n: _max_rel(a, b) for n, a, b in zip(GRAD_NAMES, _grads_flat(gb),
+                                                      _grads_flat(wb))}
+        err["grads"] = grads
+        finite = all(bool(torch.isfinite(t).all()) for t in got + gb)
+        ok = (repeat_equal and finite and err["out"][1] <= TOL_BNECK_OUT
+              and all(r <= max(TOL_BNECK_STATS, TOL_BNECK_STATS_PER_PIXEL / (h * w))
+                      for r in err["stats"].values())
+              and all(r <= TOL_BNECK_GRAD for _, r in grads.values()))
+        vec = "vector" if ct % 8 == 0 and p % 8 == 0 else "scalar"
+        print(f"bottleneck vs plain [{name}] {h}x{w} Ct {ct} P {p} d{d} ({vec} loads): "
+              f"out {err['out'][1]:.3e}, stats "
+              + ", ".join(f"{n} {r:.2e}" for n, r in err["stats"].items()) + ", grads "
+              + ", ".join(f"{n} {r:.2e}" for n, (_, r) in grads.items())
+              + f" of max; repeat bitwise equal: {repeat_equal}: "
+              f"{'ok' if ok else 'MISMATCH'}")
+        worst["cases"][name] = err
+        worst["match"] = worst["match"] and ok
+    if not worst["match"]:
+        fail("bottleneck kernels disagree with their plain versions or between runs")
+    return worst
+
+
+def phase_bneck_library_free() -> list:
+    """Profiles one fused forward + backward at layer3 and fails if any CUDA kernel in
+    it is not this package's own (names with ``bneck_``) or a fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    _, h, w, ct, p, d = BNECK[2]
+    x, ws, vecs = bneck_inputs(h, w, ct, p, gen)
+    x.requires_grad_(True)
+    for t in ws:
+        t.requires_grad_(True)
+
+    def run():
+        out, _ = fused_bottleneck(x, *ws, *vecs, d)
+        dy = (2.0 * out.detach().float()).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        return out, dy
+
+    out, dy = run()
+    torch.autograd.grad(out, (x, *ws), dy)  # warm-up: the library's first load
+    out, dy = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, _ = fused_bottleneck(x, *ws, *vecs, d)
+        torch.autograd.grad(out, (x, *ws), dy)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            names[e.name] = names.get(e.name, 0) + 1
+    ours = {n for n in names if "bneck_" in n}
+    library = [n for n in names if n not in ours
+               and any(k in n.lower() for k in LIBRARY_KERNEL_WORDS)]
+    other = [n for n in names if n not in ours and "fill" not in n.lower()]
+    print(f"fused bottleneck fwd+bwd at layer3, CUDA kernels (profiler, {sum(names.values())} "
+          f"launches): " + "; ".join(f"{n[:90]} x{c}" for n, c in sorted(names.items())))
+    if not ours or library or other:
+        fail(f"the fused bottleneck ran kernels not its own: library {library}, "
+             f"other {other}")
+    return sorted(names)
+
+
+def phase_bneck_bench() -> dict:
+    """The benchmark path: tools/bench_fused_bottleneck.main at layer3, full width,
+    BENCH_REPS calls a chain, counts zeroed just before and read just after; then the
+    same with every conv2 of the composed module on cuDNN (the yardstick)."""
+    argv = ["--geometry", BENCH_GEOMETRY, "--reps", str(BENCH_REPS)]
+    reset_counts()
+    res = bench_fused_bottleneck.main(argv)
+    launches = read_counts()
+    r = BENCH_REPS
+    # Each chain makes one warm-up call, then r: B6 in both fused chains, B7 in one; the
+    # module runs conv2 forward in both chains and its input gradient in one (B4), its
+    # weight gradient in one (B5).
+    check_counts("fused bottleneck benchmark", launches,
+                 {"bottleneck_fwd": 2 * (r + 1), "bottleneck_bwd": r + 1,
+                  "conv3x3_fwd": 3 * (r + 1), "conv3x3_wgrad": r + 1})
+    if not res["finite"]:
+        fail("the fused bottleneck chains gave non-finite values")
+    if res["agree_rel"] > 2.0 ** -6:
+        fail(f"fused bottleneck and the composed module differ by {res['agree_rel']:.3e} "
+             "of the output's max (limit 2**-6)")
+    with conv2_through(cudnn_conv2):
+        cud = bench_fused_bottleneck.main(argv)
+    print(f"benchmark path (layer3, {BENCH_REPS} calls a chain, ms per call): fused fwd "
+          f"{res['fused_fwd_ms']:.4f}, fwd+bwd {res['fused_fwdbwd_ms']:.4f}; module (conv2 "
+          f"on B4/B5) fwd {res['module_fwd_ms']:.4f}, fwd+bwd {res['module_fwdbwd_ms']:.4f};"
+          f" module with conv2 on cuDNN (yardstick) fwd {cud['module_fwd_ms']:.4f}, "
+          f"fwd+bwd {cud['module_fwdbwd_ms']:.4f}; fused vs module output "
+          f"{res['agree_rel']:.3e} of max (limit 2**-6)")
+    return {"launches": launches, "res": res, "cudnn": cud}
+
+
+def phase_bneck_times(bench: dict, paths: dict, worst: dict) -> list:
+    """B6/B7 at the four trunk geometries: the wrappers (weight packing included), the
+    plain versions, the bound from ``work()``. Returns the kernels line's entries at
+    layer3, with the composed module's times from the benchmark path in place of a
+    library call (no single PyTorch call computes the fused block)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    entries = []
+    for name, h, w, ct, p, d in BNECK:
+        x, ws, vecs = bneck_inputs(h, w, ct, p, gen)
+        fwd = bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
+        dy = (2.0 * fwd[0].float()).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        saved = (fwd[1], fwd[2], fwd[3], fwd[4], d)
+        t = {"fwd": cuda_ms(lambda: bottleneck.bottleneck_fwd(x, *ws, *vecs, d), iters=20),
+             "bwd": cuda_ms(lambda: bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved),
+                            iters=20),
+             "fwd_plain": cuda_ms(lambda: bottleneck.bottleneck_fwd_plain(
+                 x, *ws, *vecs, d), iters=3, warmup=1),
+             "bwd_plain": cuda_ms(lambda: bottleneck.bottleneck_bwd_plain(
+                 dy, x, *ws, *vecs, *saved), iters=3, warmup=1)}
+        line = []
+        for op in ("fwd", "bwd"):
+            nbytes, ops = bottleneck.work(h, w, ct, p, op)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_FLOP_S * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            line.append(f"{op} {t[op]:.4f} ms (plain {t[op + '_plain']:.3f}, bound "
+                        f"{bound:.4f} by {by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                        f"{ops / t[op] / 1e9:.1f} TFLOP/s)")
+            if name != "layer3":
+                continue
+            fwd_op = op == "fwd"
+            key = "bottleneck_" + op
+            err = worst["cases"]["layer3"]
+            res, cud = bench["res"], bench["cudnn"]
+            entries.append({
+                "name": key, "route": "cuda", "source": "simt_tpu_torch/csrc/bottleneck.cu",
+                "replaces": "experiments/pallas_bottleneck/bottleneck.py:"
+                            + ("74" if fwd_op else "195"),
+                "launches": bench["launches"][key],
+                "launches_by_path": {"bench": bench["launches"][key],
+                                     **{k: v[key] for k, v in paths.items()}},
+                "max_abs_err": (err["out"][0] if fwd_op
+                                else max(a for a, _ in err["grads"].values())),
+                "rel_err": ({"out": err["out"][1], "stats": err["stats"]} if fwd_op
+                            else {n: r for n, (_, r) in err["grads"].items()}),
+                "match": worst["match"], "ms": t[op], "plain_ms": t[op + "_plain"],
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "library_note": "no single PyTorch call computes the fused block; "
+                                "module_* are the composed Bottleneck's ms per call",
+                "module_ms": res["module_fwd_ms"] if fwd_op else res["module_fwdbwd_ms"],
+                "module_cudnn_ms": (cud["module_fwd_ms"] if fwd_op
+                                    else cud["module_fwdbwd_ms"]),
+                "fused_chain_ms": res["fused_fwd_ms"] if fwd_op else res["fused_fwdbwd_ms"],
+                "bytes": nbytes, "ops": ops,
+                "shape": (f"x 1x{h}x{w}x{ct} bf16 NHWC, P {p}, d {d}, weights f32 OIHW -> "
+                          + ("out, h1raw, h2raw bf16, 6 stats f32" if fwd_op
+                             else "dx bf16, dw1-3 f32, 6 dg/db f32")),
+            })
+        print(f"bottleneck times [{name} 1x{h}x{w}x{ct} P {p} d{d}]: " + "; ".join(line))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -931,6 +1184,8 @@ def main() -> int:
     worst = phase_kernel_vs_plain(rng)
     loss_worst = phase_loss_kernels_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
+    bneck_worst = phase_bneck_kernels_vs_plain()
+    phase_bneck_library_free()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_small_reference(tmp)
         phase_small_steps(tmp)
@@ -944,16 +1199,19 @@ def main() -> int:
         train = phase_train_main_path(tmp)
         torch.cuda.empty_cache()
         warm = phase_warmup_main_path()
+    torch.cuda.empty_cache()
+    bench = phase_bneck_bench()
     entry = phase_kernel_times(rng, launches, worst)
     device_ms = sum(forward_ms) + entry["kernel_ms"]
     print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
           f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
           f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
     loss_entries = phase_loss_kernel_times(rng, train["launches"], loss_worst)
-    conv_entries = phase_conv_times({"warmup": warm["launches"], "simt": train["launches"],
-                                     "eval": launches}, conv_worst)
+    paths = {"warmup": warm["launches"], "simt": train["launches"], "eval": launches}
+    conv_entries = phase_conv_times(paths, conv_worst)
+    bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
 
-    print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries]}))
+    print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries, *bneck_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(
     "build", "kernels",
 )
 SOURCES: Dict[str, str] = {"eval_fused": "eval_fused.cu", "loss_fused": "loss_fused.cu",
-                           "conv3x3": "conv3x3.cu"}
+                           "conv3x3": "conv3x3.cu", "bottleneck": "bottleneck.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

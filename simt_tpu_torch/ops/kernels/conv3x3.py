@@ -144,12 +144,12 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
 conv3x3_wgrad.launches = 0
 
 
-def wgrad_splits(pixels: int, c: int, o: int) -> Tuple[int, int]:
+def wgrad_splits(pixels: int, c: int, o: int, taps: int = 9) -> Tuple[int, int]:
     """(splits, pixels per split) of B5's pixel sum: enough blocks to fill the card
-    (the grid is splits x C-tiles x O-tiles x 9 taps), at least _WGRAD_MIN_PIXELS
+    (the grid is splits x C-tiles x O-tiles x taps), at least _WGRAD_MIN_PIXELS
     pixels a split. A function of the shapes only, so the sum order is fixed."""
     pixels = max(pixels, 1)
-    tiles = 9 * math.ceil(c / _WGRAD_TILE) * math.ceil(o / _WGRAD_TILE)
+    tiles = taps * math.ceil(c / _WGRAD_TILE) * math.ceil(o / _WGRAD_TILE)
     want = math.ceil(_WGRAD_BLOCKS_PER_SM * _NUM_SMS / tiles)
     splits = max(1, min(want, math.ceil(pixels / _WGRAD_MIN_PIXELS)))
     per_split = math.ceil(pixels / splits)
@@ -220,9 +220,11 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _raise_if(err: int, name: str) -> None:
+def _raise_if(err: int, name: str, lib=None) -> None:
+    """Raises if a C entry point returned a CUDA error; ``lib`` is the library that
+    returned it (this module's by default)."""
     if err != 0:
-        msg = _lib().simt_cuda_error_string(err).decode()
+        msg = (lib or _lib()).simt_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
