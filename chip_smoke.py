@@ -14,7 +14,10 @@ Phases (any failure exits non-zero before the last line is printed):
      (B4 forward and input gradient, B5 weight gradient) at the four trunk geometries
      of a 512x1024 input in bf16 at batch 1 and 2, at those of the eval path's 640x1280
      input at batch 1, in float32 at a small one, and on edge cases (3 -> 5
-     channels on 13x10, padding wider than a 3x5 image, channel counts off the tiles);
+     channels on 13x10, padding wider than a 3x5 image, channel counts off the tiles),
+     each run twice and bitwise equal, printing the kernel variant each case took; one
+     B4 forward, dx and B5 at layer3 under the profiler, which must show one package
+     kernel each (and the weight permute's copy);
      the fused train-mode bottleneck (B6 forward, B7 backward) at the four trunk
      identity-block geometries and on edge cases (an odd 9x13 image, dilation 4 on a
      3x5 image, 36/9 channels off the vector width), each run twice and bitwise equal;
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero before the last line is printed):
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
      inner_w_steps 3) and three warmup steps at the same geometry (closed set);
   4. main paths, each with every launch count zeroed just before and read just after
-     (each count must equal the path's own, 0 for a kernel it does not run):
+     (each count must equal the path's own, 0 for a kernel it does not run; every B4/B5
+     launch must be of the wgmma variant):
      the two-scale ``evaluate(device="cuda")`` of a full-width open-set
      DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; the SimT train step of
      ``tools/train_simt.py`` (full-width student and teacher with seeded random
@@ -39,7 +43,10 @@ Phases (any failure exits non-zero before the last line is printed):
      conv2 on cuDNN;
   5. times: per-scale forward (and with conv2 on cuDNN), each kernel against its
      plain version, its bound and, where one exists, a library call computing the
-     same function.
+     same function; B4/B5 at the four trunk geometries by the wrappers' time (CUDA
+     events, ``ms``) and their kernels' device time
+     (profiler, ``kernel_ms``), cuDNN by the same two clocks, with the tiles, splits
+     and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing).
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -78,6 +85,8 @@ from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import bench_fused_bottleneck, train_simt, train_warmup  # noqa: E402
+from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD, conv_calls,  # noqa: E402
+                                                cuda_ms, profile_kernels, time_conv)
 from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
                                   make_simt_step, make_warmup_step)
 from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
@@ -96,21 +105,6 @@ PEAK_BF16_FLOP_S = 989e12
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def phase_build() -> None:
@@ -214,7 +208,7 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     miou, hist = evaluate(model, **dict(kw, print_fn=lines.append))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_counts()
+    launches, variants = read_counts(), read_variants()
     print(lines[-1])
     print(f"main path: evaluate(simt, two scales, {OUT_HW[0]}x{OUT_HW[1]}) over "
           f"{N_IMAGES} images: {seconds:.3f} s, {N_IMAGES / seconds:.3f} img/s, "
@@ -222,9 +216,10 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     # One B1 a image; two scales a image, one B4 forward for each of the 33 bottlenecks.
     check_counts("eval", launches, {"multiscale_argmax_hist": N_IMAGES,
                                     "conv3x3_fwd": 2 * N_CONV2 * N_IMAGES})
+    check_wgmma("eval", variants)
     if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
         fail(f"main path histogram total {hist.sum()} or mIoU {miou} is wrong")
-    return launches, seconds
+    return launches, seconds, variants
 
 
 def phase_forward_times(model: torch.nn.Module) -> list:
@@ -481,13 +476,31 @@ COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
            "bottleneck_bwd": bottleneck.bottleneck_bwd}
 
 
+# The wrappers that count their launches by kernel variant as well.
+BY_VARIANT = ("conv3x3_fwd", "conv3x3_wgrad")
+
+
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    for name in BY_VARIANT:
+        COUNTED[name].variants = dict.fromkeys(COUNTED[name].variants, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def read_variants() -> dict:
+    return {name: dict(COUNTED[name].variants) for name in BY_VARIANT}
+
+
+def check_wgmma(path: str, variants: dict) -> None:
+    """Fails unless every B4/B5 launch of a bf16 main path went to the wgmma kernels."""
+    print(f"{path} main path B4/B5 launches by variant: {variants}")
+    for name, counts in variants.items():
+        if sum(counts.values()) != counts["wgmma"]:
+            fail(f"{path}: {name} launched {counts}, not only its wgmma kernel")
 
 
 def check_counts(path: str, launches: dict, want: dict) -> None:
@@ -518,7 +531,7 @@ def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
     reset_counts()
     step.spans = []
     wall_ms, timed = timed_steps(step, state, batches, first=2)
-    launches = read_counts()
+    launches, variants = read_counts(), read_variants()
     parts = {}
     for name, start, end in step.spans:
         parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / TIMED_STEPS
@@ -535,13 +548,14 @@ def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
           + f"; sum {sum(parts.values()):.3f}, wall {wall_ms:.3f}")
     check_counts(path, launches, want)
+    check_wgmma(path, variants)
     device_ms = profile_steps(step, state, batches)
     print(f"{path} step device busy share: {device_ms:.3f} ms of kernels per step "
           f"(profiler) over {wall_ms:.3f} ms wall per step (timed run) = "
           f"{device_ms / wall_ms:.3f}")
     conv2_ab(path, step, state, batches)
-    return {"launches": launches, "wall_ms": wall_ms, "parts": parts,
-            "device_ms": device_ms}
+    return {"launches": launches, "variants": variants, "wall_ms": wall_ms,
+            "parts": parts, "device_ms": device_ms}
 
 
 def profile_steps(step, state, batches, n: int = 3, report: bool = True,
@@ -663,7 +677,9 @@ def _max_rel(a: torch.Tensor, b: torch.Tensor) -> Tuple[float, float]:
 
 
 def phase_conv_kernels_vs_plain() -> dict:
-    """B4 (forward and input gradient) and B5 against conv3x3_taps / wgrad_taps."""
+    """B4 (forward and input gradient) and B5 against conv3x3_taps / wgrad_taps; each
+    kernel run twice, bitwise equal. Prints the variant each case took: bf16 on the
+    vector width the wgmma kernels, float32 and bf16 off it the first port's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = {}
     for name, h, w, c, d, _ in TRUNK:
@@ -682,15 +698,21 @@ def phase_conv_kernels_vs_plain() -> dict:
     worst = {"match": True, "cases": {}}
     for name, (b, h, w, c, o, d, dt) in cases.items():
         x, wt, g = conv_inputs(b, h, w, c, o, dt, gen)
+        reset_counts()
         got = {"fwd": conv3x3.conv3x3_fwd(x, wt, d),
                "dx": conv3x3.conv3x3_fwd(g, wt, d, flip=True),
                "wgrad": conv3x3.conv3x3_wgrad(x, g, d)}
+        took = {n: [k for k, v in c_.items() if v] for n, c_ in read_variants().items()}
+        again = {"fwd": conv3x3.conv3x3_fwd(x, wt, d),
+                 "dx": conv3x3.conv3x3_fwd(g, wt, d, flip=True),
+                 "wgrad": conv3x3.conv3x3_wgrad(x, g, d)}
         want = {"fwd": conv3x3.conv3x3_taps(x, wt, d),
                 "dx": conv3x3.conv3x3_taps(g, wt, d, flip=True),
                 "wgrad": conv3x3.wgrad_taps(x, g, d)}
         torch.cuda.synchronize()
         tol_out = TOL_CONV_BF16 if dt == torch.bfloat16 else TOL_CONV_F32
-        err, ok = {}, True
+        repeat_equal = all(torch.equal(got[op], again[op]) for op in got)
+        err, ok = {}, repeat_equal
         for op in ("fwd", "dx", "wgrad"):
             if got[op].shape != want[op].shape or got[op].dtype != want[op].dtype:
                 fail(f"conv3x3 {op} [{name}]: {got[op].shape}/{got[op].dtype} vs "
@@ -699,13 +721,14 @@ def phase_conv_kernels_vs_plain() -> dict:
             err[op] = {"max_abs": abs_err, "rel_max": rel}
             ok = ok and rel <= (TOL_WGRAD if op == "wgrad" else tol_out) and bool(
                 torch.isfinite(got[op]).all())
-        print(f"conv3x3 vs plain [{name}] B{b} {h}x{w} {c}->{o} d{d} {str(dt)[6:]}: "
+        print(f"conv3x3 vs plain [{name}] B{b} {h}x{w} {c}->{o} d{d} {str(dt)[6:]} "
+              f"(B4 {'/'.join(took['conv3x3_fwd'])}, B5 {'/'.join(took['conv3x3_wgrad'])}): "
               + ", ".join(f"{op} {e['rel_max']:.3e}" for op, e in err.items())
-              + f" of max: {'ok' if ok else 'MISMATCH'}")
+              + f" of max; repeat bitwise equal: {repeat_equal}: {'ok' if ok else 'MISMATCH'}")
         worst["cases"][name] = err
         worst["match"] = worst["match"] and ok
     if not worst["match"]:
-        fail("conv3x3 kernels disagree with their plain versions")
+        fail("conv3x3 kernels disagree with their plain versions or between runs")
     return worst
 
 
@@ -851,74 +874,105 @@ def phase_warmup_main_path() -> dict:
     return out
 
 
-def phase_conv_times(paths: dict, worst: dict) -> list:
-    """B4 and B5 at the four trunk geometries (batch 1, bf16): the wrappers as the
-    model calls them (the weight permute included), the plain versions, the bound and
-    the library yardsticks the port never calls (cuDNN through F.conv2d and
-    aten.convolution_backward). Returns the kernels line's entries at layer3 (23 of the
-    33 blocks); the other geometries are printed."""
+def phase_conv_library_free() -> None:
+    """One B4 forward, one dx and one B5 at layer3 under the profiler: only the
+    package's kernels and the weight permute's copy may run (no library GEMM or
+    convolution, no second B5 launch)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    _, h, w, c, d, _ = TRUNK[2]
+    x, wt, g = conv_inputs(1, h, w, c, c, torch.bfloat16, gen)
+    for op, (call, _) in conv_calls(conv3x3, x, wt, g, d).items():
+        names = {n: k for n, (k, _) in profile_kernels(call, 1).items()}
+        ours = [n for n in names if KERNEL_WORD in n]
+        library = [n for n in names
+                   if any(k in n.lower() for k in LIBRARY_KERNEL_WORDS + ("reduce",))]
+        others = [n for n in names if n not in ours]
+        print(f"conv3x3 {op} at layer3, CUDA kernels (profiler, launches a call): "
+              + "; ".join(f"{n[:90]} x{k}" for n, k in sorted(names.items())))
+        want_others = 0 if op == "wgrad" else 1  # the weight permute's copy
+        if (len(ours) != 1 or names[ours[0]] != 1 or library
+                or len(others) != want_others):
+            fail(f"conv3x3 {op} ran {names}: want one package kernel"
+                 + (" and the permute's copy" if want_others else ""))
+
+
+def phase_conv_times(paths: dict, variants: dict, worst: dict) -> list:
+    """B4 and B5 at the four trunk geometries (batch 1, bf16), timed by
+    ``bench_conv3x3.time_conv``: ``ms``, the wrapper back to back as the model calls it
+    (CUDA events; the weight permute and the host's pace included), and ``kernel_ms``,
+    its kernel's device time (profiler); ``library_ms`` and ``library_kernel_ms``, the
+    same two of cuDNN's call (F.conv2d, aten.convolution_backward; a yardstick the port
+    never calls); the plain versions, the bound, the tile, splits and waves chosen.
+    Returns the kernels line's entries, layer3 (23 of the 33 blocks) as the main figure
+    and every geometry under by_geometry; prints the host cost of a call at layer3."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     step_ops = 0
-    entries = []
+    rows = {}
     for name, h, w, c, d, blocks in TRUNK:
         x, wt, g = conv_inputs(1, h, w, c, c, torch.bfloat16, gen)
-        pad = (d, d)
-        t = {
-            "fwd": cuda_ms(lambda: conv3x3.conv3x3_fwd(x, wt, d), iters=20),
-            "dx": cuda_ms(lambda: conv3x3.conv3x3_fwd(g, wt, d, flip=True), iters=20),
-            "wgrad": cuda_ms(lambda: conv3x3.conv3x3_wgrad(x, g, d), iters=20),
-            "fwd_plain": cuda_ms(lambda: conv3x3.conv3x3_taps(x, wt, d), iters=3,
-                                 warmup=1),
-            "dx_plain": cuda_ms(lambda: conv3x3.conv3x3_taps(g, wt, d, flip=True),
-                                iters=3, warmup=1),
-            "wgrad_plain": cuda_ms(lambda: conv3x3.wgrad_taps(x, g, d), iters=3,
-                                   warmup=1),
-            "fwd_library": cuda_ms(lambda: F.conv2d(x, wt, padding=pad, dilation=d),
-                                   iters=20),
-            "dx_library": cuda_ms(lambda: torch.ops.aten.convolution_backward(
-                g, x, wt, None, [1, 1], list(pad), [d, d], False, [0, 0], 1,
-                [True, False, False]), iters=20),
-            "wgrad_library": cuda_ms(lambda: torch.ops.aten.convolution_backward(
-                g, x, wt, None, [1, 1], list(pad), [d, d], False, [0, 0], 1,
-                [False, True, False]), iters=20),
-        }
+        timed = time_conv(conv_calls(conv3x3, x, wt, g, d), host=name == "layer3")
+        plain = {"fwd": lambda: conv3x3.conv3x3_taps(x, wt, d),
+                 "dx": lambda: conv3x3.conv3x3_taps(g, wt, d, flip=True),
+                 "wgrad": lambda: conv3x3.wgrad_taps(x, g, d)}
+        ft, wg = conv3x3.fwd_tiles(h * w, c), conv3x3.wgrad_tiles(h * w, c, c)
+        tiles = {"fwd": f"128x{ft.bn} tiles, {ft.tiles} blocks, {ft.waves} wave(s)",
+                 "wgrad": (f"{wg.bc}x{wg.bo} tiles x 9 taps, {wg.splits} split(s) of "
+                           f"{wg.per_split} pixels, {wg.items} blocks, {wg.waves} wave(s)")}
+        tiles["dx"] = tiles["fwd"]
         line = []
-        for op in ("fwd", "dx", "wgrad"):
+        for op, r in timed.items():
             nbytes, ops = conv3x3.work(1, h, w, c, c, torch.bfloat16, op)
             t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_FLOP_S * 1e3
-            bound = max(t_bytes, t_ops)
+            r.update(plain_ms=cuda_ms(plain[op], iters=3, warmup=1),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, ops=ops, tiles=tiles[op])
+            rows[(name, op)] = r
             step_ops += ops * blocks
-            line.append(f"{op} {t[op]:.4f} ms (plain {t[op + '_plain']:.3f}, cuDNN "
-                        f"{t[op + '_library']:.4f}, bound {bound:.4f} by "
-                        f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
-                        f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-                        f"{ops / t[op] / 1e9:.1f} TFLOP/s)")
-            if name == "layer3" and op in ("fwd", "wgrad"):
-                key = "conv3x3_fwd" if op == "fwd" else "conv3x3_wgrad"
-                err = worst["cases"]["layer3_b1"][op]
-                entries.append({
-                    "name": key, "route": "cuda",
-                    "source": "simt_tpu_torch/csrc/conv3x3.cu",
-                    "replaces": "experiments/pallas_alternates/conv3x3.py:"
-                                + ("73" if op == "fwd" else "97"),
-                    "launches": paths["warmup"][key],
-                    "launches_by_path": {p: v[key] for p, v in paths.items()},
-                    "max_abs_err": err["max_abs"], "rel_err": err["rel_max"],
-                    "match": worst["match"], "ms": t[op], "plain_ms": t[op + "_plain"],
-                    "bound_ms": bound,
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": t[op + "_library"], "bytes": nbytes, "ops": ops,
-                    **({"dx_ms": t["dx"], "dx_plain_ms": t["dx_plain"],
-                        "dx_library_ms": t["dx_library"]} if op == "fwd" else {}),
-                    "shape": (f"x 1x{h}x{w}x{c} bf16 NHWC, w {c}x{c}x3x3 bf16, d {d} -> "
-                              + (f"1x{h}x{w}x{c} bf16" if op == "fwd"
-                                 else f"dw {c}x{c}x3x3 f32")),
-                })
+            line.append(f"{op} {r['ms']:.4f} ms wrapper, {r['kernel_ms']:.4f} kernel (plain "
+                        f"{r['plain_ms']:.3f}; cuDNN {r['library_ms']:.4f} call, "
+                        f"{r['library_kernel_ms']:.4f} kernels; bound {r['bound_ms']:.4f} by "
+                        f"{r['bound_by']}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                        f"kernel {ops / r['kernel_ms'] / 1e9:.1f} TFLOP/s; {tiles[op]})")
         print(f"conv3x3 times [{name} 1x{h}x{w}x{c} d{d}, {blocks} blocks]: "
               + "; ".join(line))
+        if name == "layer3":
+            print("conv3x3 host cost per call at layer3 (us, 200 calls issued back to "
+                  "back), wrapper / cuDNN: " + ", ".join(
+                      f"{op} {r['host_us']:.1f} / {r['library_host_us']:.1f}"
+                      for op, r in timed.items()))
     print(f"conv3x3 work of one warmup step (forward + input gradient + weight gradient "
           f"of the 33 blocks): {step_ops / 1e12:.3f} TFLOP, "
           f"{step_ops / PEAK_BF16_FLOP_S * 1e3:.3f} ms at the bf16 peak")
+    times = ("ms", "kernel_ms", "library_ms", "library_kernel_ms")
+    entries = []
+    for op, key in (("fwd", "conv3x3_fwd"), ("wgrad", "conv3x3_wgrad")):
+        r = rows[("layer3", op)]
+        err = worst["cases"]["layer3_b1"][op]
+        geo = {}
+        for name, *_ in TRUNK:
+            g_ = rows[(name, op)]
+            geo[name] = {k: g_[k] for k in times + ("bound_ms", "tiles")}
+            if op == "fwd":
+                geo[name].update({"dx_" + k: rows[(name, "dx")][k] for k in times})
+        _, h, w, c, d, _ = TRUNK[2]
+        entries.append({
+            "name": key, "route": "cuda", "source": "simt_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "experiments/pallas_alternates/conv3x3.py:"
+                        + ("73" if op == "fwd" else "97"),
+            "launches": paths["warmup"][key],
+            "launches_by_path": {p: v[key] for p, v in paths.items()},
+            "variants_by_path": {p: v[key] for p, v in variants.items()},
+            "max_abs_err": err["max_abs"], "rel_err": err["rel_max"],
+            "match": worst["match"],
+            **{k: r[k] for k in times + ("plain_ms", "bound_ms", "bound_by", "host_us",
+                                         "library_host_us", "bytes", "ops", "tiles")},
+            **({"dx_" + k: rows[("layer3", "dx")][k] for k in times + ("plain_ms",)}
+               if op == "fwd" else {}),
+            "by_geometry": geo,
+            "shape": (f"x 1x{h}x{w}x{c} bf16 NHWC, w {c}x{c}x3x3 bf16, d {d} -> "
+                      + (f"1x{h}x{w}x{c} bf16" if op == "fwd" else f"dw {c}x{c}x3x3 f32")),
+        })
     return entries
 
 
@@ -1184,6 +1238,7 @@ def main() -> int:
     worst = phase_kernel_vs_plain(rng)
     loss_worst = phase_loss_kernels_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
+    phase_conv_library_free()
     bneck_worst = phase_bneck_kernels_vs_plain()
     phase_bneck_library_free()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1192,7 +1247,7 @@ def main() -> int:
         phase_warmup_small_steps()
         model = deeplab_multi(C, 15, openset=True)
         init_weights(model, torch.Generator().manual_seed(SEED))
-        launches, seconds = phase_main_path(tmp, model)
+        launches, seconds, eval_variants = phase_main_path(tmp, model)
         forward_ms = phase_forward_times(model)
         del model
         torch.cuda.empty_cache()
@@ -1208,7 +1263,8 @@ def main() -> int:
           f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
     loss_entries = phase_loss_kernel_times(rng, train["launches"], loss_worst)
     paths = {"warmup": warm["launches"], "simt": train["launches"], "eval": launches}
-    conv_entries = phase_conv_times(paths, conv_worst)
+    variants = {"warmup": warm["variants"], "simt": train["variants"], "eval": eval_variants}
+    conv_entries = phase_conv_times(paths, variants, conv_worst)
     bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
 
     print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries, *bneck_entries]}))
