@@ -20,9 +20,10 @@ Phases (any failure exits non-zero before the last line is printed):
      kernel each (and the weight permute's copy);
      the fused train-mode bottleneck (B6 forward, B7 backward) at the four trunk
      identity-block geometries and on edge cases (an odd 9x13 image, dilation 4 on a
-     3x5 image, 36/9 channels off the vector width), each run twice and bitwise equal;
-     one fused forward + backward at layer3 under the profiler, which must show no
-     kernel but the package's own (and fills);
+     3x5 image, 36/9 channels off the vector width), each run twice and bitwise equal,
+     every trunk geometry on the wgmma kernels and the off-vector case on the first
+     port's; one fused forward + backward at layer3 under the profiler, which must show
+     no kernel but the package's own (and fills);
   3. small-input checks, float32 on the card against the CPU: the whole evaluation,
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
      inner_w_steps 3) and three warmup steps at the same geometry (closed set);
@@ -46,7 +47,10 @@ Phases (any failure exits non-zero before the last line is printed):
      same function; B4/B5 at the four trunk geometries by the wrappers' time (CUDA
      events, ``ms``) and their kernels' device time
      (profiler, ``kernel_ms``), cuDNN by the same two clocks, with the tiles, splits
-     and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing).
+     and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing);
+     B6/B7 at the four trunk geometries by the same two clocks with their launches a
+     call (7 and 12, or the run fails) and, at layer3, each launch's device time in
+     launch order (``tools/bench_fused_bottleneck.py``'s ``time_bneck``).
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -85,6 +89,8 @@ from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import bench_fused_bottleneck, train_simt, train_warmup  # noqa: E402
+from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
+                                                         bneck_inputs, time_bneck)
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD, conv_calls,  # noqa: E402
                                                 cuda_ms, profile_kernels, time_conv)
 from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
@@ -477,7 +483,7 @@ COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
 
 
 # The wrappers that count their launches by kernel variant as well.
-BY_VARIANT = ("conv3x3_fwd", "conv3x3_wgrad")
+BY_VARIANT = ("conv3x3_fwd", "conv3x3_wgrad", "bottleneck_fwd", "bottleneck_bwd")
 
 
 def reset_counts() -> None:
@@ -496,8 +502,9 @@ def read_variants() -> dict:
 
 
 def check_wgmma(path: str, variants: dict) -> None:
-    """Fails unless every B4/B5 launch of a bf16 main path went to the wgmma kernels."""
-    print(f"{path} main path B4/B5 launches by variant: {variants}")
+    """Fails unless every B4/B5 (and B6/B7) launch of a bf16 path went to the wgmma
+    kernels."""
+    print(f"{path} B4/B5/B6/B7 launches by variant: {variants}")
     for name, counts in variants.items():
         if sum(counts.values()) != counts["wgmma"]:
             fail(f"{path}: {name} launched {counts}, not only its wgmma kernel")
@@ -980,13 +987,11 @@ def phase_conv_times(paths: dict, variants: dict, worst: dict) -> list:
 # The fused train-mode bottleneck (B6/B7) and its benchmark path
 # ---------------------------------------------------------------------------------
 
-# (name, H, W, trunk channels Ct, planes P, dilation) of the trunk's identity blocks at a
-# 512x1024 crop.
-BNECK = (("layer1", 129, 257, 256, 64, 1), ("layer2", 65, 129, 512, 128, 1),
-         ("layer3", 65, 129, 1024, 256, 2), ("layer4", 65, 129, 2048, 512, 4))
+# BNECK (imported from tools/bench_fused_bottleneck.py): (name, H, W, trunk channels
+# Ct, planes P, dilation) of the trunk's identity blocks at a 512x1024 crop.
 # Edge cases (H, W, Ct, P, d): an odd image; dilation 4 on a 3x5 image (every 3x3 tap
 # but the centre falls off it); channel counts off the kernels' 8-element vector width,
-# which the kernels take on their scalar load path.
+# which the first port's kernels take on their scalar load path.
 BNECK_EDGE = {"edge_odd_9x13": (9, 13, 64, 16, 2), "edge_d4_on_3x5": (3, 5, 32, 8, 4),
               "edge_off_vector_36_9": (9, 11, 36, 9, 1)}
 # Tolerances of B6/B7 against their plain versions on the same inputs. Both sum exactly
@@ -1011,20 +1016,6 @@ GRAD_NAMES = ("dx", "dw1", "dw2", "dw3", "dg1", "db1", "dg2", "db2", "dg3", "db3
 LIBRARY_KERNEL_WORDS = ("gemm", "cublas", "cudnn", "xmma", "cutlass")
 
 
-def bneck_inputs(h: int, w: int, ct: int, p: int, gen: torch.Generator):
-    """x (1, Ct, H, W) bf16 channels_last, OIHW float32 weights N(0, 0.05^2) (the JAX
-    benchmark's scale), BN scale 1 + N(0, 0.1^2) and bias N(0, 0.1^2)."""
-    x = torch.randn(1, ct, h, w, device="cuda", generator=gen).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    ws = [torch.randn(*shape, device="cuda", generator=gen) * 0.05
-          for shape in ((p, ct, 1, 1), (p, p, 3, 3), (ct, p, 1, 1))]
-    vecs = []
-    for i, n in enumerate((p, p, p, p, ct, ct)):
-        r = torch.randn(n, device="cuda", generator=gen) * 0.1
-        vecs.append(1.0 + r if i % 2 == 0 else r)
-    return x, ws, vecs
-
-
 def _grads_flat(res) -> list:
     """(dx, dw1, dw2, dw3, dgb_p, dgb_t) -> the ten gradients."""
     dx, dw1, dw2, dw3, dgb_p, dgb_t = res
@@ -1041,6 +1032,7 @@ def phase_bneck_kernels_vs_plain() -> dict:
     worst = {"match": True, "cases": {}}
     for name, (h, w, ct, p, d) in cases.items():
         x, ws, vecs = bneck_inputs(h, w, ct, p, gen)
+        reset_counts()
         got = bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
         want = bottleneck.bottleneck_fwd_plain(x, *ws, *vecs, d)
         dy = (2.0 * got[0].float()).to(torch.bfloat16).contiguous(
@@ -1048,9 +1040,15 @@ def phase_bneck_kernels_vs_plain() -> dict:
         saved = (got[1], got[2], got[3], got[4], d)
         gb = bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved)
         wb = bottleneck.bottleneck_bwd_plain(dy, x, *ws, *vecs, *saved)
+        took = {n: [k for k, v in c_.items() if v] for n, c_ in read_variants().items()
+                if n.startswith("bottleneck")}
         again = (bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
                  + bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved))
         torch.cuda.synchronize()
+        # Every trunk geometry on the wgmma kernels; off the vector width the first port's.
+        want_kind = "wgmma" if ct % 8 == 0 and p % 8 == 0 else "wmma"
+        if any(v != [want_kind] for v in took.values()):
+            fail(f"bottleneck [{name}] took {took}, want {want_kind} for both")
         repeat_equal = all(torch.equal(a, b) for a, b in zip(got + gb, again))
         err = {"out": _max_rel(got[0], want[0]), "stats": {}}
         stats = [*got[3].unbind(), *got[4].unbind()]
@@ -1068,8 +1066,7 @@ def phase_bneck_kernels_vs_plain() -> dict:
               and all(r <= max(TOL_BNECK_STATS, TOL_BNECK_STATS_PER_PIXEL / (h * w))
                       for r in err["stats"].values())
               and all(r <= TOL_BNECK_GRAD for _, r in grads.values()))
-        vec = "vector" if ct % 8 == 0 and p % 8 == 0 else "scalar"
-        print(f"bottleneck vs plain [{name}] {h}x{w} Ct {ct} P {p} d{d} ({vec} loads): "
+        print(f"bottleneck vs plain [{name}] {h}x{w} Ct {ct} P {p} d{d} ({want_kind}): "
               f"out {err['out'][1]:.3e}, stats "
               + ", ".join(f"{n} {r:.2e}" for n, r in err["stats"].items()) + ", grads "
               + ", ".join(f"{n} {r:.2e}" for n, (_, r) in grads.items())
@@ -1155,66 +1152,103 @@ def phase_bneck_bench() -> dict:
     return {"launches": launches, "res": res, "cudnn": cud}
 
 
+def per_launch(timed: dict) -> list:
+    """[short kernel name, device ms] of a ``time_bneck`` entry's launches, in order."""
+    def short(name: str) -> str:
+        return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+    return [[short(n), ms] for n, ms in timed["per_launch"]]
+
+
+# Launches a call at every trunk geometry (the wgmma path): B6 the weight packing, three
+# GEMMs (statistics finished inside), two BatchNorm + ReLU passes and the residual
+# pass; B7 the packing with the coefficients, one BatchNorm + ReLU pass, four GEMMs,
+# three dor passes and three weight gradients (no reduce launch). The first port
+# issued 10 and 23.
+BNECK_LAUNCHES = {"fwd": 7, "bwd": 12}
+
+
 def phase_bneck_times(bench: dict, paths: dict, worst: dict) -> list:
-    """B6/B7 at the four trunk geometries: the wrappers (weight packing included), the
-    plain versions, the bound from ``work()``. Returns the kernels line's entries at
-    layer3, with the composed module's times from the benchmark path in place of a
-    library call (no single PyTorch call computes the fused block)."""
+    """B6/B7 at the four trunk geometries, timed by ``bench_fused_bottleneck.time_bneck``:
+    ``ms``, the wrapper back to back (CUDA events; the weight packing and the host's
+    pace included), ``kernel_ms``, the device time of the call's ``bneck_`` kernels
+    (profiler), the launches a call and each launch's device time (printed at layer3); the
+    plain versions; the bound from ``work()``. Fails if a call issues other than
+    BNECK_LAUNCHES launches. Returns the kernels line's entries at layer3, every
+    geometry under by_geometry, with the composed module's times from the benchmark
+    path in place of a library call (no single PyTorch call computes the fused block)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    entries = []
+    rows = {}
     for name, h, w, ct, p, d in BNECK:
         x, ws, vecs = bneck_inputs(h, w, ct, p, gen)
+        reset_counts()
+        timed = time_bneck(bneck_calls(bottleneck, x, ws, vecs, d))
+        variants = read_variants()
         fwd = bottleneck.bottleneck_fwd(x, *ws, *vecs, d)
         dy = (2.0 * fwd[0].float()).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        saved = (fwd[1], fwd[2], fwd[3], fwd[4], d)
-        t = {"fwd": cuda_ms(lambda: bottleneck.bottleneck_fwd(x, *ws, *vecs, d), iters=20),
-             "bwd": cuda_ms(lambda: bottleneck.bottleneck_bwd(dy, x, *ws, *vecs, *saved),
-                            iters=20),
-             "fwd_plain": cuda_ms(lambda: bottleneck.bottleneck_fwd_plain(
-                 x, *ws, *vecs, d), iters=3, warmup=1),
-             "bwd_plain": cuda_ms(lambda: bottleneck.bottleneck_bwd_plain(
-                 dy, x, *ws, *vecs, *saved), iters=3, warmup=1)}
+        plain = {"fwd": lambda: bottleneck.bottleneck_fwd_plain(x, *ws, *vecs, d),
+                 "bwd": lambda: bottleneck.bottleneck_bwd_plain(dy, x, *ws, *vecs, *fwd[1:],
+                                                                d)}
         line = []
         for op in ("fwd", "bwd"):
+            r = timed[op]
+            kinds = variants["bottleneck_" + op]
+            if r["launches"] != BNECK_LAUNCHES[op] or kinds["wmma"]:
+                fail(f"bottleneck {op} [{name}]: {r['launches']} launches a call "
+                     f"(want {BNECK_LAUNCHES[op]}), variants {kinds}")
             nbytes, ops = bottleneck.work(h, w, ct, p, op)
             t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_FLOP_S * 1e3
-            bound = max(t_bytes, t_ops)
-            by = "bytes" if t_bytes >= t_ops else "operations"
-            line.append(f"{op} {t[op]:.4f} ms (plain {t[op + '_plain']:.3f}, bound "
-                        f"{bound:.4f} by {by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-                        f"{ops / t[op] / 1e9:.1f} TFLOP/s)")
-            if name != "layer3":
-                continue
-            fwd_op = op == "fwd"
-            key = "bottleneck_" + op
-            err = worst["cases"]["layer3"]
-            res, cud = bench["res"], bench["cudnn"]
-            entries.append({
-                "name": key, "route": "cuda", "source": "simt_tpu_torch/csrc/bottleneck.cu",
-                "replaces": "experiments/pallas_bottleneck/bottleneck.py:"
-                            + ("74" if fwd_op else "195"),
-                "launches": bench["launches"][key],
-                "launches_by_path": {"bench": bench["launches"][key],
-                                     **{k: v[key] for k, v in paths.items()}},
-                "max_abs_err": (err["out"][0] if fwd_op
-                                else max(a for a, _ in err["grads"].values())),
-                "rel_err": ({"out": err["out"][1], "stats": err["stats"]} if fwd_op
-                            else {n: r for n, (_, r) in err["grads"].items()}),
-                "match": worst["match"], "ms": t[op], "plain_ms": t[op + "_plain"],
-                "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "library_note": "no single PyTorch call computes the fused block; "
-                                "module_* are the composed Bottleneck's ms per call",
-                "module_ms": res["module_fwd_ms"] if fwd_op else res["module_fwdbwd_ms"],
-                "module_cudnn_ms": (cud["module_fwd_ms"] if fwd_op
-                                    else cud["module_fwdbwd_ms"]),
-                "fused_chain_ms": res["fused_fwd_ms"] if fwd_op else res["fused_fwdbwd_ms"],
-                "bytes": nbytes, "ops": ops,
-                "shape": (f"x 1x{h}x{w}x{ct} bf16 NHWC, P {p}, d {d}, weights f32 OIHW -> "
-                          + ("out, h1raw, h2raw bf16, 6 stats f32" if fwd_op
-                             else "dx bf16, dw1-3 f32, 6 dg/db f32")),
-            })
+            r.update(plain_ms=cuda_ms(plain[op], iters=3, warmup=1),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, ops=ops)
+            rows[(name, op)] = r
+            line.append(f"{op} {r['ms']:.4f} ms wrapper, {r['kernel_ms']:.4f} kernels, "
+                        f"{r['launches']:g} launches (plain {r['plain_ms']:.3f}, bound "
+                        f"{r['bound_ms']:.4f} by {r['bound_by']}; {ops / 1e9:.2f} GFLOP, "
+                        f"{nbytes / 1e6:.1f} MB, kernels {ops / r['kernel_ms'] / 1e9:.1f} "
+                        f"TFLOP/s)")
         print(f"bottleneck times [{name} 1x{h}x{w}x{ct} P {p} d{d}]: " + "; ".join(line))
+        if name == "layer3":
+            for op in ("fwd", "bwd"):
+                print(f"bottleneck {op} launches at layer3, in order (profiler, device ms): "
+                      + "; ".join(f"{n} {ms:.4f}" for n, ms in per_launch(timed[op])))
+    entries = []
+    _, h, w, ct, p, d = BNECK[2]
+    keys = ("ms", "kernel_ms", "launches", "plain_ms", "bound_ms")
+    for op in ("fwd", "bwd"):
+        fwd_op = op == "fwd"
+        key = "bottleneck_" + op
+        r = rows[("layer3", op)]
+        err = worst["cases"]["layer3"]
+        res, cud = bench["res"], bench["cudnn"]
+        entries.append({
+            "name": key, "route": "cuda", "source": "simt_tpu_torch/csrc/bottleneck.cu",
+            "replaces": "experiments/pallas_bottleneck/bottleneck.py:"
+                        + ("74" if fwd_op else "195"),
+            "launches": bench["launches"][key],
+            "launches_by_path": {"bench": bench["launches"][key],
+                                 **{k: v[key] for k, v in paths.items()}},
+            "max_abs_err": (err["out"][0] if fwd_op
+                            else max(a for a, _ in err["grads"].values())),
+            "rel_err": ({"out": err["out"][1], "stats": err["stats"]} if fwd_op
+                        else {n: r_ for n, (_, r_) in err["grads"].items()}),
+            "match": worst["match"], "ms": r["ms"], "kernel_ms": r["kernel_ms"],
+            "launches_per_call": r["launches"], "per_launch": per_launch(r),
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the fused block; "
+                            "module_* are the composed Bottleneck's ms per call",
+            "module_ms": res["module_fwd_ms"] if fwd_op else res["module_fwdbwd_ms"],
+            "module_cudnn_ms": (cud["module_fwd_ms"] if fwd_op
+                                else cud["module_fwdbwd_ms"]),
+            "fused_chain_ms": res["fused_fwd_ms"] if fwd_op else res["fused_fwdbwd_ms"],
+            "bytes": r["bytes"], "ops": r["ops"],
+            "by_geometry": {g[0]: {k: rows[(g[0], op)][k] for k in keys} for g in BNECK},
+            "shape": (f"x 1x{h}x{w}x{ct} bf16 NHWC, P {p}, d {d}, weights f32 OIHW -> "
+                      + ("out, h1raw, h2raw bf16, 6 stats f32" if fwd_op
+                         else "dx bf16, dw1-3 f32, 6 dg/db f32")),
+        })
     return entries
 
 

@@ -15,7 +15,7 @@ own copy of the mapping in ``simt_tpu/models/import_torch.py``:
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,14 +89,23 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_matching(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> dict:
+def load_matching(model: nn.Module, state_dict: Mapping[str, torch.Tensor], *,
+                  strip_prefix: int = 0, exclude: Iterable[str] = ()) -> dict:
     """Load the entries of ``state_dict`` whose key and shape match the model (the
-    reference's key-intersection warm start, trainV2_simt.py:252-255). Returns a report
-    of loaded / skipped (shape mismatch) / missing / unused keys."""
+    reference's key-intersection warm start, trainV2_simt.py:252-255). The reference's
+    other two flavours, as ``simt_tpu/models/import_torch.py::import_state_dict`` has
+    them: ``strip_prefix`` drops the first N characters of every key first (the warmup
+    stage's ``k[6:]``, trainV1_warmup.py:177), and keys (after that) starting with a
+    prefix in ``exclude`` are skipped (deeplab.py:230-235's head exclusion). Returns a
+    report of loaded / skipped (shape mismatch) / missing / unused keys."""
     own = model.state_dict()
+    exclude = tuple(exclude)
     report = {"loaded": [], "skipped": [], "missing": [], "unused": []}
     take = {}
     for k, v in state_dict.items():
+        k = k[strip_prefix:]
+        if k.startswith(exclude):
+            continue
         if k not in own:
             report["unused"].append(k)
         elif tuple(v.shape) != tuple(own[k].shape):

@@ -2,10 +2,10 @@
 
 Each source under ``simt_tpu_torch/csrc/`` has a plain C interface and is compiled
 for ``sm_90a`` into a shared library under ``<repo>/build/kernels/`` (listed in
-``.gitignore``), named by a hash of the source and the flags so that an edited source
-is rebuilt. Nothing is built when a module is imported: ``build`` runs at first use,
-or ahead of time from ``chip_smoke.py``, and compiles every requested source with one
-``nvcc`` each, all started together.
+``.gitignore``), named by a hash of the source, the headers under ``csrc/`` and the
+flags, so that an edited source or header is rebuilt. Nothing is built when a module is
+imported: ``build`` runs at first use, or ahead of time from ``chip_smoke.py``, and
+compiles every requested source with one ``nvcc`` each, all started together.
 """
 
 from __future__ import annotations
@@ -50,10 +50,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``name`` is built: named by a hash of its source, every header under
+    ``csrc/`` (``*.cuh``, which a source may include) and the flags."""
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, path), "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:

@@ -21,22 +21,35 @@ out = bf16(relu(a3*outraw + c3 + x)) rounded once.
 
 Both wrappers dispatch on the tensors' device: on the CPU they run the plain versions
 (``bottleneck_fwd_plain``, ``bottleneck_bwd_plain``); on a CUDA device they launch the
-kernels of ``csrc/bottleneck.cu`` (and add one to their ``launches``, however many
-launches the call issues) or raise. They never fall back.
+kernels of ``csrc/bottleneck.cu`` or raise. They never fall back. Which kernels,
+``variant``:
+
+  - ``"wgmma"``: Ct and P multiples of 8 and 16-byte-aligned tensors, every trunk
+    geometry. The GEMMs run on ``wgmma`` fed by TMA, their tiles from ``fwd_tiles``
+    (``schedule``), the statistics finished in the GEMMs, h1 and h2 written once by a
+    BatchNorm + ReLU pass, the weight gradients on B5's design split by
+    ``wgrad_tiles``: B6 seven launches, B7 twelve;
+  - ``"wmma"``: off the vector width or unaligned, the first port's kernels (B6 eight
+    launches, B7 seventeen).
+
+Each wrapper adds one to ``launches`` and to ``variants[variant]`` a call, however
+many launches the call issues.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv3x3 import _check_tensor, _raise_if, _stream, _vec, wgrad_splits
+from .conv3x3 import (FwdTiles, WgradTiles, _check_tensor, _raise_if, _stream, _tickets,
+                      _vec, fwd_tiles, wgrad_splits, wgrad_tiles)
 
 EPS = 1e-5
 _BM = 128  # B6/B7's GEMM row tile: one partial per 128 pixels for each statistic
@@ -216,6 +229,65 @@ def _weight_args(w1, w2, w3):
     return ws, int(w1.dtype == bf16)
 
 
+def gemm_shapes(ct: int, p: int) -> Dict[str, Tuple[int, int, int]]:
+    """(taps, K, N) of every GEMM of B6 (conv1-3) and B7 (outraw recomputed, dh2, the
+    transposed 3x3 dh1, dx), in launch order."""
+    return {"conv1": (1, ct, p), "conv2": (9, p, p), "conv3": (1, p, ct),
+            "outraw": (1, p, ct), "dh2": (1, ct, p), "dh1": (9, p, p), "dx": (1, p, ct)}
+
+
+def wgrad_shapes(ct: int, p: int) -> Dict[str, Tuple[int, int, int]]:
+    """(taps, C, O) of B7's weight gradients: dw = A'^T G over the pixels, A' (pixels, C)
+    and G (pixels, O): dw1 = x^T dor1, dw2 = h1_tap^T dor2, dw3 = h2^T dor3."""
+    return {"dw1": (1, ct, p), "dw2": (9, p, p), "dw3": (1, p, ct)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """The wgmma path's work at one geometry: each GEMM's tile (``fwd_tiles``) and each
+    weight gradient's tiles and split (``wgrad_tiles``), functions of the shapes alone,
+    so the order of every sum is fixed."""
+    gemms: Dict[str, FwdTiles]
+    wgrads: Dict[str, WgradTiles]
+
+    def fwd_args(self) -> list:
+        return [self.gemms[k].bn for k in ("conv1", "conv2", "conv3")]
+
+    def bwd_args(self) -> list:
+        out = [self.gemms[k].bn for k in ("outraw", "dh2", "dh1", "dx")]
+        for k in ("dw1", "dw2", "dw3"):
+            t = self.wgrads[k]
+            out += [t.bc, t.bo, t.splits, t.per_split]
+        return out
+
+    def tickets(self) -> int:
+        """Tickets a call needs: one per N tile of a GEMM, one per weight-gradient tile."""
+        return max([t.n_tiles for t in self.gemms.values()]
+                   + [t.tiles for t in self.wgrads.values()])
+
+
+@functools.lru_cache(maxsize=None)
+def schedule(pixels: int, ct: int, p: int) -> Schedule:
+    return Schedule({k: fwd_tiles(pixels, n) for k, (_, _, n) in gemm_shapes(ct, p).items()},
+                    {k: wgrad_tiles(pixels, c, o, taps)
+                     for k, (taps, c, o) in wgrad_shapes(ct, p).items()})
+
+
+def variant(ct: int, p: int, tensors) -> str:
+    """The kernels that take a call on a card: ``"wgmma"`` when Ct and P are multiples
+    of 8 and every tensor is 16-byte aligned (TMA's strides and addresses, the 16-byte
+    epilogues), else ``"wmma"``, the first port's."""
+    return "wgmma" if _vec(bf16, (ct, p), tensors) else "wmma"
+
+
+def _ints(vals) -> ctypes.Array:
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def bottleneck_fwd(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, d: int):
     """B6: (out, h1raw, h2raw, stats_p, stats_t); see the module docstring."""
     vecs = (g1, b1, g2, b2, g3, b3)
@@ -236,19 +308,26 @@ def bottleneck_fwd(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, d: int):
     part = torch.empty(math.ceil(m / _BM) * 2 * max(p, ct), **f32)
     coef = torch.empty(4 * (2 * p + ct), **f32)
     (cw1, cw2, cw3), wbf = _weight_args(w1, w2, w3)
-    vec = _vec(bf16, (ct, p), (x, out, h1raw, h2raw, wpack))
+    kind = variant(ct, p, (x, out, h1raw, h2raw, wpack))
+    sched = schedule(m, ct, p) if kind == "wgmma" else None
+    hbuf = torch.empty(m * p, dtype=bf16, device=dev) if sched else None  # h1, then h2
+    stream = _stream(x)
+    tickets = _tickets(dev, stream, sched.tickets() if sched else 1)
     lib = _lib()
     err = lib.simt_bneck_fwd(
         x.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), cw3.data_ptr(), wbf,
         *(v.data_ptr() for v in vecs), out.data_ptr(), h1raw.data_ptr(), h2raw.data_ptr(),
         stats_p.data_ptr(), stats_t.data_ptr(), wpack.data_ptr(), part.data_ptr(),
-        coef.data_ptr(), h, w, ct, p, d, vec, _stream(x))
+        coef.data_ptr(), tickets.data_ptr(), _ptr(hbuf), h, w, ct, p, d,
+        int(sched is not None), _ints(sched.fwd_args() if sched else []), stream)
     _raise_if(err, "bottleneck_fwd", lib)
     bottleneck_fwd.launches += 1
+    bottleneck_fwd.variants[kind] += 1
     return out, h1raw, h2raw, stats_p, stats_t
 
 
 bottleneck_fwd.launches = 0
+bottleneck_fwd.variants = {"wgmma": 0, "wmma": 0}
 
 
 def bottleneck_bwd(dy, x, w1, w2, w3, g1, b1, g2, b2, g3, b3, h1raw, h2raw, stats_p,
@@ -289,35 +368,45 @@ def bottleneck_bwd(dy, x, w1, w2, w3, g1, b1, g2, b2, g3, b3, h1raw, h2raw, stat
     coef = torch.empty(6 * (2 * p + ct), **f32)
     dgb_p = torch.empty((4, p), **f32)
     dgb_t = torch.empty((2, ct), **f32)
-    # (C, O, taps) of each weight gradient's pixel contraction, and its split of pixels.
-    shapes = {1: (ct, p, 1), 2: (p, p, 9), 3: (p, ct, 1)}
-    splits = {k: wgrad_splits(m, c, o, taps) for k, (c, o, taps) in shapes.items()}
-    dws = {k: (torch.empty(w_.shape, **f32) if need[k] else None)
-           for k, w_ in ((1, w1), (2, w2), (3, w3))}
-    wpart_n = max([splits[k][0] * shapes[k][0] * shapes[k][1] * shapes[k][2]
-                   for k in dws if dws[k] is not None], default=1)
-    wpart = torch.empty(wpart_n, **f32)
+    dws = {k: (torch.empty(w_.shape, **f32) if need[i + 1] else None)
+           for i, (k, w_) in enumerate((("dw1", w1), ("dw2", w2), ("dw3", w3)))}
     (cw1, cw2, cw3), wbf = _weight_args(w1, w2, w3)
-    vec = _vec(bf16, (ct, p), (x, dy, h1raw, h2raw, dx, big, s2, s1, wpack))
-
-    def ptr(t: Optional[torch.Tensor]):
-        return None if t is None else t.data_ptr()
-
+    kind = variant(ct, p, (x, dy, h1raw, h2raw, dx, big, s2, s1, wpack))
+    if kind == "wgmma":
+        sched = schedule(m, ct, p)
+        args = sched.bwd_args()
+        # Each weight gradient's (splits, pixels a split); float32 partials only to split.
+        splits = {k: (t.splits, t.per_split) for k, t in sched.wgrads.items()}
+        staged = {k for k, (n, _) in splits.items() if n > 1}
+    else:
+        sched = None
+        splits = {k: wgrad_splits(m, c, o, taps)
+                  for k, (taps, c, o) in wgrad_shapes(ct, p).items()}
+        args = [0] * 4 + [v for k in ("dw1", "dw2", "dw3") for v in (0, 0, *splits[k])]
+        staged = set(splits)
+    wpart_n = max([splits[k][0] * math.prod(wgrad_shapes(ct, p)[k])
+                   for k in staged if dws[k] is not None], default=1)
+    wpart = torch.empty(wpart_n, **f32)
+    hs = [torch.empty(m * p, dtype=bf16, device=dev) if sched else None for _ in range(2)]
+    stream = _stream(x)
+    tickets = _tickets(dev, stream, sched.tickets() if sched else 1)
     lib = _lib()
     err = lib.simt_bneck_bwd(
         x.data_ptr(), dy.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), cw3.data_ptr(), wbf,
         *(v.data_ptr() for v in vecs), h1raw.data_ptr(), h2raw.data_ptr(),
-        stats_p.data_ptr(), stats_t.data_ptr(), dx.data_ptr(), ptr(dws[1]), ptr(dws[2]),
-        ptr(dws[3]), dgb_p.data_ptr(), dgb_t.data_ptr(), wpack.data_ptr(), big.data_ptr(),
-        s2.data_ptr(), s1.data_ptr(), part.data_ptr(), wpart.data_ptr(), coef.data_ptr(),
-        h, w, ct, p, d, *splits[1], *splits[2], *splits[3], int(bool(need[0])), vec,
-        _stream(x))
+        stats_p.data_ptr(), stats_t.data_ptr(), dx.data_ptr(), _ptr(dws["dw1"]),
+        _ptr(dws["dw2"]), _ptr(dws["dw3"]), dgb_p.data_ptr(), dgb_t.data_ptr(),
+        wpack.data_ptr(), big.data_ptr(), s2.data_ptr(), s1.data_ptr(), part.data_ptr(),
+        wpart.data_ptr(), coef.data_ptr(), tickets.data_ptr(), _ptr(hs[0]), _ptr(hs[1]), h,
+        w, ct, p, d, int(bool(need[0])), int(sched is not None), _ints(args), stream)
     _raise_if(err, "bottleneck_bwd", lib)
     bottleneck_bwd.launches += 1
-    return (dx if need[0] else None, dws[1], dws[2], dws[3], dgb_p, dgb_t)
+    bottleneck_bwd.variants[kind] += 1
+    return (dx if need[0] else None, dws["dw1"], dws["dw2"], dws["dw3"], dgb_p, dgb_t)
 
 
 bottleneck_bwd.launches = 0
+bottleneck_bwd.variants = {"wgmma": 0, "wmma": 0}
 
 
 def work(h: int, w: int, ct: int, p: int, op: str) -> Tuple[int, int]:
@@ -345,10 +434,10 @@ def work(h: int, w: int, ct: int, p: int, op: str) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bottleneck")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.simt_bneck_fwd.argtypes = [p] * 4 + [i] + [p] * 14 + [i] * 6 + [p]
+    p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.simt_bneck_fwd.argtypes = [p] * 4 + [i] + [p] * 16 + [i] * 6 + [ip, p]
     lib.simt_bneck_fwd.restype = i
-    lib.simt_bneck_bwd.argtypes = [p] * 5 + [i] + [p] * 23 + [i] * 13 + [p]
+    lib.simt_bneck_bwd.argtypes = [p] * 5 + [i] + [p] * 26 + [i] * 7 + [ip, p]
     lib.simt_bneck_bwd.restype = i
     lib.simt_cuda_error_string.argtypes = [i]
     lib.simt_cuda_error_string.restype = ctypes.c_char_p

@@ -161,17 +161,19 @@ def fwd_tiles(pixels: int, n: int) -> FwdTiles:
 class WgradTiles:
     """B5's work on the wgmma kernel: per tap, ``bc`` x ``bo`` tiles of (C, O), the
     pixel sum cut into ``splits`` ranges of ``per_split`` pixels (a multiple of
-    WGRAD_PIX; the last range fewer); one block per (split, tile, tap)."""
+    WGRAD_PIX; the last range fewer); one block per (split, tile, tap). ``taps`` is 9
+    for the 3x3 conv, 1 for the fused bottleneck's 1x1 weight gradients."""
     bc: int
     bo: int
     splits: int
     per_split: int
     c_tiles: int
     o_tiles: int
+    taps: int = 9
 
     @property
     def tiles(self) -> int:
-        return 9 * self.c_tiles * self.o_tiles
+        return self.taps * self.c_tiles * self.o_tiles
 
     @property
     def items(self) -> int:
@@ -183,13 +185,14 @@ class WgradTiles:
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_tiles(pixels: int, c: int, o: int) -> WgradTiles:
+def wgrad_tiles(pixels: int, c: int, o: int, taps: int = 9) -> WgradTiles:
     """B5's tile and split from the shapes alone (so the order of every sum is fixed):
     the C tile is 64 for ``c`` <= 64, else 128; of the O tiles and split counts, the one
     with the least modelled time, whole waves of products at the bf16 peak (each item's
     pixel stages x its tile) plus, with more than one split, the float32 partials
     written and read once at the memory rate. Fewer splits, then the wider tile, on a
-    tie."""
+    tie. ``taps`` 1 schedules a 1x1 conv's weight gradient (the fused bottleneck's dw1
+    and dw3) on the same kernel design."""
     chunks = max(1, math.ceil(pixels / WGRAD_PIX))
     bc = 64 if c <= 64 else 128
     best = None
@@ -200,9 +203,9 @@ def wgrad_tiles(pixels: int, c: int, o: int) -> WgradTiles:
         for want in range(1, min(chunks, _WGRAD_MAX_SPLITS) + 1):
             per = math.ceil(chunks / want)
             t = WgradTiles(bc, bo, math.ceil(chunks / per), per * WGRAD_PIX, c_tiles,
-                           o_tiles)
+                           o_tiles, taps)
             mma_s = t.waves * per * 2 * WGRAD_PIX * bc * bo / (_PEAK_BF16_FLOP_S / _NUM_SMS)
-            sum_s = 0.0 if t.splits == 1 else 2 * t.splits * 9 * c * o * 4 / _PEAK_BYTES_S
+            sum_s = 0.0 if t.splits == 1 else 2 * t.splits * taps * c * o * 4 / _PEAK_BYTES_S
             key = (mma_s + sum_s, t.splits, -bo)
             if best is None or key < best[0]:
                 best = (key, t)

@@ -55,23 +55,38 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_kernels(fn, iters: int) -> dict:
+def profile_kernels(fn, iters: int, ordered: bool = False):
     """{kernel name: (launches, device ms)} of ``iters`` calls of ``fn`` under
-    torch.profiler, after 3 warm-up calls."""
+    torch.profiler, after 3 warm-up calls. With ``ordered``, the list of one call's
+    launches in launch order instead, [(name, device ms)], each the mean over the calls
+    at that position: one profiler session a call, and only the calls with the most
+    launches recorded count (the profiler can drop a kernel's record; a call with a gap
+    would shift every later position)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def kernels(calls: int) -> list:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation), key=lambda e: e.time_range.start)
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    if ordered:
+        runs = [kernels(1) for _ in range(iters)]
+        n = max(len(r) for r in runs)
+        full = [r for r in runs if len(r) == n]
+        return [(full[0][i].name,
+                 sum(r[i].time_range.elapsed_us() for r in full) / len(full) / 1e3)
+                for i in range(n)]
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            n, ms = out.get(e.name, (0, 0.0))
-            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    for e in kernels(iters):
+        n, ms = out.get(e.name, (0, 0.0))
+        out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     return out
 
 

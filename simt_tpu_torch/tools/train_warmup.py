@@ -6,13 +6,13 @@ tools/trainV1_warmup.py + sh_warmup.sh:17).
       --num-classes 5 --input-size-target 64,32 --compute-dtype float32
 
 Builds the closed-set DeepLabv2-ResNet-101 (seeded random weights, or a ``.pth`` given
-by ``--restore-from`` loaded by key intersection), the warmup state, and runs
-``--num-steps-stop`` steps on in-memory synthetic batches (made before the first step),
-printing one metric line per step in the reference's format. The preset defaults to
-``warmup_bapa`` (NUM_STEPS_STOP 150 000, trainV1_warmup.py:52). The dataset loader,
-evaluation in the loop, checkpoints and resume come with the data/loop slice; until
-then ``--synthetic`` is required. The adversarial warmup (``--adversarial`` of the JAX
-CLI) comes with the auxiliary models.
+by ``--restore-from`` loaded by key intersection after the reference's ``k[6:]``), the
+warmup state, and runs ``--num-steps-stop`` steps on in-memory synthetic batches (made
+before the first step), printing one metric line per step in the reference's format.
+The preset defaults to ``warmup_bapa`` (NUM_STEPS_STOP 150 000, trainV1_warmup.py:52).
+The dataset loader, evaluation in the loop, checkpoints and resume come with the
+data/loop slice; until then ``--synthetic`` is required. The adversarial warmup
+(``--adversarial`` of the JAX CLI) comes with the auxiliary models.
 """
 
 from __future__ import annotations
@@ -72,12 +72,14 @@ def build_config(args) -> config_lib.TrainConfig:
 
 def build_model(cfg):
     """Full-depth closed-set DeepLabv2-ResNet-101 (trainV1_warmup.py) with the seeded
-    reference init, or the ``restore_from`` .pth loaded by key intersection."""
+    reference init, or the ``restore_from`` .pth loaded by key intersection after
+    dropping the first 6 characters of every key (the reference's ``k[6:]``,
+    trainV1_warmup.py:177, as ``simt_tpu/train/loop.py``'s warmup stage does)."""
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     model = deeplab_multi(cfg.model.num_classes, 0, openset=False, dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(cfg.random_seed))
     if cfg.restore_from:
-        rep = load_matching(model, load_pth(cfg.restore_from))
+        rep = load_matching(model, load_pth(cfg.restore_from), strip_prefix=6)
         print(f"model: loaded {len(rep['loaded'])} tensors from {cfg.restore_from} "
               f"(missing {len(rep['missing'])}, skipped {len(rep['skipped'])})")
     return model
