@@ -7,10 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
   1. build: compile every CUDA source of the package with nvcc for sm_90a, in parallel;
   2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
      (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
-     zero operand) and edge cases; the loss core's forward and backward (B2/B3) at the
-     train path's shapes (xcat 1x65x129x68 -> 512x1024, C 19 + O 15; batch 1 and 2),
-     with all labels ignored, every pixel unknown, a 37x301 output from 6x39 logits
-     and a planted anchor tie across blocks and images; the trunk's dilated 3x3 conv
+     zero operand) and edge cases; the trunk's dilated 3x3 conv
      (B4 forward and input gradient, B5 weight gradient) at the four trunk geometries
      of a 512x1024 input in bf16 at batch 1 and 2, at those of the eval path's 640x1280
      input at batch 1, in float32 at a small one, and on edge cases (3 -> 5
@@ -50,7 +47,16 @@ Phases (any failure exits non-zero before the last line is printed):
      and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing);
      B6/B7 at the four trunk geometries by the same two clocks with their launches a
      call (7 and 12, or the run fails) and, at layer3, each launch's device time in
-     launch order (``tools/bench_fused_bottleneck.py``'s ``time_bneck``).
+     launch order (``tools/bench_fused_bottleneck.py``'s ``time_bneck``);
+  6. the loss core's forward and backward (B2/B3) against their plain versions at the
+     train path's shapes (xcat 1x65x129x68 -> 512x1024, C 19 + O 15; batch 1, 2 and 16)
+     on four label maps (iid per pixel, constant over 16x16 cells on a grid aligned to
+     the warps and on one shifted off it, and the inputs one full-width SimT step hands
+     the core), at batch 4 of the eval's 1024x2048, with all labels ignored, every pixel
+     unknown, a 37x301 output from 6x39 logits and a planted anchor tie across blocks
+     and images, each run twice and bitwise equal; then their times on the four maps
+     with every device operation of a call (``tools/bench_loss_fused.py``'s timing: one
+     each, or the run fails).
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -85,14 +91,17 @@ from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
 from simt_tpu_torch.models import layers  # noqa: E402
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
-from simt_tpu_torch.ops.fused_losses import teacher_conf  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import bench_fused_bottleneck, train_simt, train_warmup  # noqa: E402
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
-from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD, conv_calls,  # noqa: E402
-                                                cuda_ms, profile_kernels, time_conv)
+from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
+                                                PROFILE_PAD_S, conv_calls, cuda_ms,
+                                                profile_kernels, time_conv)
+from simt_tpu_torch.tools.bench_loss_fused import (LABEL_MAPS, loss_calls,  # noqa: E402
+                                                   loss_inputs, make_maps, step_inputs,
+                                                   time_loss)
 from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
                                   make_simt_step, make_warmup_step)
 from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
@@ -301,29 +310,13 @@ TRAIN_LOGIT_HW = (65, 129)  # stride-8 map of a 512x1024 crop
 TIMED_STEPS = 5
 # Tolerances of the loss core against its plain version. Counts, anchor indices, anchor
 # maxima and presence must be equal: the plain version computes every upsampled logit,
-# softmax denominator and picked posterior with the kernel's operations in its order.
-# The sums differ in summation order only (float32 over up to 1M pixels): 1e-5
-# relative. dT sums the same terms in another order (the kernel's shared-memory float
-# atomics included): 1e-4 of max|dT|. dxcat: 1e-5 of max|dxcat|.
+# softmax denominator, reciprocal and picked posterior with the kernel's operations in
+# its order. The sums differ in summation order only (float32 over up to 1M pixels):
+# 1e-5 relative. dT sums the same terms in another order (per warp, label group by label
+# group, then the warps, blocks and block groups in a fixed order, where the plain
+# version adds pixel by pixel): 1e-4 of max|dT|. dxcat: 1e-5 of max|dxcat|. Every
+# output of both kernels must be bitwise equal across two runs.
 TOL_SUMS, TOL_DT, TOL_DX = 1e-5, 1e-4, 1e-5
-
-
-def loss_inputs(rng: np.random.Generator, batch: int, h8: int, w8: int, hh: int,
-                ww: int):
-    dev = "cuda"
-    c, tot = C, C + O
-    xcat = torch.from_numpy((rng.standard_normal((batch, h8, w8, 2 * tot)) * 2)
-                            .astype(np.float32)).to(dev)
-    tp = torch.softmax(torch.from_numpy((rng.standard_normal((batch, h8, w8, c)) * 3)
-                                        .astype(np.float32)), -1).to(dev)
-    label = rng.integers(0, c, (batch, hh, ww)).astype(np.int32)
-    label[rng.random((batch, hh, ww)) < 0.1] = 255
-    conf = teacher_conf(tp, (hh, ww), num_classes=c, threshold_high=0.8,
-                        threshold_low=0.2)
-    t1, t2 = (torch.softmax(torch.from_numpy(rng.standard_normal((tot, c))
-                                             .astype(np.float32)), -1).to(dev)
-              for _ in range(2))
-    return xcat, torch.from_numpy(label).to(dev), conf, t1, t2
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -331,10 +324,18 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
-    """B2/B3 against loss_core_fwd_reference / loss_core_bwd_reference on the card."""
+    """B2/B3 against loss_core_fwd_reference / loss_core_bwd_reference on the card: the
+    main path's shapes on the iid, regions, shifted and step label maps
+    (``bench_loss_fused``'s inputs; the step's own sums cotangent), batches 2 and 16,
+    batch 4 at 1024x2048 (more than one wave of bands; one block an SM) and edge cases;
+    each kernel run twice and bitwise equal."""
     h8, w8 = TRAIN_LOGIT_HW
     hh, ww = TRAIN_HW
-    cases = {"batch1": dict(batch=1), "batch2": dict(batch=2),
+    cases = {"batch1": dict(batch=1), "regions": dict(batch=1, labels="regions"),
+             "shifted": dict(batch=1, labels="shifted"),
+             "step": dict(batch=1, step=True), "batch2": dict(batch=2),
+             "batch16": dict(batch=16),
+             "batch4_1024x2048": dict(batch=4, h8=129, w8=257, hh=1024, ww=2048),
              "all_ignored": dict(batch=1, labels=255),
              "all_unknown": dict(batch=1, conf=C),
              "edge_37x301_from_6x39": dict(batch=2, h8=6, w8=39, hh=37, ww=301),
@@ -343,8 +344,14 @@ def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
     for name, kw in cases.items():
         shape = dict(batch=kw["batch"], h8=kw.get("h8", h8), w8=kw.get("w8", w8),
                      hh=kw.get("hh", hh), ww=kw.get("ww", ww))
-        xcat, label, conf, t1, t2 = loss_inputs(rng, **shape)
-        if "labels" in kw:
+        if kw.get("step"):
+            xcat, label, conf, t1, t2, g = step_inputs(SEED)
+        else:
+            labels = kw.get("labels")
+            xcat, label, conf, t1, t2 = loss_inputs(
+                rng, **shape, labels=labels if isinstance(labels, str) else "iid")
+            g = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).cuda()
+        if isinstance(kw.get("labels"), int):
             label.fill_(kw["labels"])
         if "conf" in kw:
             conf.fill_(kw["conf"])
@@ -358,10 +365,11 @@ def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
                 xcat[bi, i, j, 3] = 40.0
             want_idx = (shape["hh"] - 1) * shape["ww"]
         kwc = dict(num_classes=C, threshold_high=0.8)
-        got = loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc)
+        got, again = (loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc)
+                      for _ in range(2))
         want = loss_fused.loss_core_fwd_reference(xcat, label, conf, t1, t2, **kwc)
-        g = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).cuda()
-        dgot = loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2, **kwc)
+        dgot, dagain = (loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2, **kwc)
+                        for _ in range(2))
         dwant = loss_fused.loss_core_bwd_reference(g, xcat, label, conf, t1, t2, **kwc)
         torch.cuda.synchronize()
         sums, sums_ref = got[0], want[0]
@@ -376,7 +384,9 @@ def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
         exact = (torch.equal(sums[:, 1::2], sums_ref[:, 1::2])
                  and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
                  and torch.equal(got[3], want[3]))
-        ok = (exact and err["sums_rel"] <= TOL_SUMS and err["dt1_rel"] <= TOL_DT
+        rerun = (all(torch.equal(a, b) for a, b in zip(got, again))
+                 and all(torch.equal(a, b) for a, b in zip(dgot, dagain)))
+        ok = (exact and rerun and err["sums_rel"] <= TOL_SUMS and err["dt1_rel"] <= TOL_DT
               and err["dt2_rel"] <= TOL_DT and err["dx_rel"] <= TOL_DX
               and bool(torch.isfinite(dgot[0]).all()))
         if want_idx is not None:
@@ -384,11 +394,12 @@ def phase_loss_kernels_vs_plain(rng: np.random.Generator) -> dict:
         print(f"loss_core vs plain [{name}] {shape}: counts/anchor/presence "
               f"{'equal' if exact else 'DIFFER'}, sums rel {err['sums_rel']:.3e}, "
               f"dT1 {err['dt1_rel']:.3e}, dT2 {err['dt2_rel']:.3e}, dxcat "
-              f"{err['dx_rel']:.3e} of max: {'ok' if ok else 'MISMATCH'}")
+              f"{err['dx_rel']:.3e} of max; reruns {'bitwise equal' if rerun else 'DIFFER'}"
+              f": {'ok' if ok else 'MISMATCH'}")
         worst["cases"][name] = err
         worst["match"] = worst["match"] and ok
     if not worst["match"]:
-        fail("loss_core kernels disagree with their plain versions")
+        fail("loss_core kernels disagree with their plain versions or between runs")
     return worst
 
 
@@ -576,6 +587,7 @@ def profile_steps(step, state, batches, n: int = 3, report: bool = True,
         for i in range(n):
             step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)  # keeps the last kernels' records (profile_kernels)
     # Device-side events, without the annotation spans that enclose kernels.
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
@@ -595,34 +607,52 @@ def profile_steps(step, state, batches, n: int = 3, report: bool = True,
     return total
 
 
-def phase_loss_kernel_times(rng: np.random.Generator, launches: dict, worst: dict) -> list:
-    """B2/B3 at the main path's shapes: the wrapper (what the step calls), the plain
-    version, the bound. No single PyTorch call computes either function: library_ms is
-    null."""
+def phase_loss_kernel_times(launches: dict, worst: dict) -> list:
+    """B2/B3 at the main path's shapes on the iid, regions, shifted and step label maps,
+    timed by ``bench_loss_fused.time_loss``: ``ms`` the wrapper back to back (CUDA
+    events), ``kernel_ms`` its kernel (profiler, held to the events' device time), every
+    device operation of one call in launch order, host us a call. Fails unless each call is one device operation, its kernel
+    (no fill or copy around it). The plain versions on iid; the bound from ``work()``
+    with each map's own counts (its forward's placeholder and label counts). No single
+    PyTorch call computes either function: library_ms is null."""
     h8, w8 = TRAIN_LOGIT_HW
     hh, ww = TRAIN_HW
-    xcat, label, conf, t1, t2 = loss_inputs(rng, 1, h8, w8, hh, ww)
-    g = torch.ones((2, 8), device="cuda")
     kwc = dict(num_classes=C, threshold_high=0.8)
-    fns = {
-        "loss_core_fwd": (lambda: loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc),
-                          lambda: loss_fused.loss_core_fwd_reference(
-                              xcat, label, conf, t1, t2, **kwc)),
-        "loss_core_bwd": (lambda: loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2,
-                                                           **kwc),
-                          lambda: loss_fused.loss_core_bwd_reference(
-                              g, xcat, label, conf, t1, t2, **kwc)),
-    }
-    work = loss_fused.work(1, h8, w8, hh, ww, C, O)
+    maps = make_maps(LABEL_MAPS, SEED)
+    rows = {}
+    for m, (xcat, label, conf, t1, t2, g) in maps.items():
+        timed = time_loss(loss_calls(loss_fused, xcat, label, conf, t1, t2, g))
+        sums = loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kwc)[0]
+        work = loss_fused.work(1, h8, w8, hh, ww, C, O, place=int(sums[:, 5].sum()),
+                               labelled=int(sums[:, 7].sum()))
+        for op, r in timed.items():
+            nbytes, ops, sfu = work[op]
+            r["bound_ms"], r["bound_by"], r["bound_term"] = loss_fused.bound(nbytes, ops,
+                                                                              sfu)
+            r.update(bytes=nbytes, ops=ops, sfu_ops=sfu)
+            rows[(m, op)] = r
+            print(f"loss_core_{op} [{m}]: wrapper {r['ms']:.4f} ms, kernel "
+                  f"{r['kernel_ms']:.4f} ms, {r['device_ops']} device operation(s) a call: "
+                  + "; ".join(f"{n} {ms:.4f}" for n, ms in r["per_launch"])
+                  + f"; host {r['host_us']:.1f} us; bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_term']}; events {r['busy_ms']:.4f} ms, {r['readings']} "
+                  f"profiler reading(s), kernel ms by {r['kernel_ms_by']}")
+            if r["launches"] != 1 or r["device_ops"] != 1:
+                fail(f"loss_core_{op} [{m}]: {r['device_ops']} device operations a call "
+                     f"({r['launches']} of its kernel), want its one kernel alone")
+    xcat, label, conf, t1, t2, g = maps["iid"]
+    plain = {"fwd": lambda: loss_fused.loss_core_fwd_reference(xcat, label, conf, t1, t2,
+                                                                **kwc),
+             "bwd": lambda: loss_fused.loss_core_bwd_reference(g, xcat, label, conf, t1,
+                                                                t2, **kwc)}
     main = worst["cases"]["batch1"]
+    keys = ("ms", "kernel_ms", "kernel_ms_by", "busy_ms", "launches", "device_ops",
+            "host_us", "bound_ms", "bound_term")
     entries = []
-    for name, (kernel, plain) in fns.items():
-        direction = name[-3:]
-        ms = cuda_ms(kernel, iters=50)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
-        nbytes, ops = work[direction]
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOP_S * 1e3
-        fwd = direction == "fwd"
+    for op in ("fwd", "bwd"):
+        fwd = op == "fwd"
+        r = rows[("iid", op)]
+        name = "loss_core_" + op
         entries.append({
             "name": name, "route": "cuda", "source": "simt_tpu_torch/csrc/loss_fused.cu",
             "replaces": ("experiments/pallas_alternates/loss_fused.py:184" if fwd
@@ -633,15 +663,18 @@ def phase_loss_kernel_times(rng: np.random.Generator, launches: dict, worst: dic
                         {"dxcat": main["dx_rel"], "dt1": main["dt1_rel"],
                          "dt2": main["dt2_rel"]}),
             "match": worst["match"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "ms": r["ms"], "kernel_ms": r["kernel_ms"], "launches_per_call": r["launches"],
+            "per_launch": r["per_launch"],
+            "plain_ms": cuda_ms(plain[op], iters=3, warmup=1),
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_term": r["bound_term"], "library_ms": None,
+            "bytes": r["bytes"], "ops": r["ops"], "sfu_ops": r["sfu_ops"],
+            "by_labels": {m: {k: rows[(m, op)][k] for k in keys} for m in maps},
             "shape": ("xcat 1x65x129x68 f32, label 1x512x1024 i32, conf 1x512x1024 u8, "
                       "T 2x34x19 f32" + (" -> sums 2x8, anchors 2x34" if fwd else
                                          " + g 2x8 -> dxcat 1x65x129x68, dT 2x34x19")),
         })
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f}"
-              f" ms by {entries[-1]['bound_by']})")
+        print(f"{name}: plain {entries[-1]['plain_ms']:.3f} ms")
     return entries
 
 
@@ -1204,7 +1237,8 @@ def phase_bneck_times(bench: dict, paths: dict, worst: dict) -> list:
                      bytes=nbytes, ops=ops)
             rows[(name, op)] = r
             line.append(f"{op} {r['ms']:.4f} ms wrapper, {r['kernel_ms']:.4f} kernels, "
-                        f"{r['launches']:g} launches (plain {r['plain_ms']:.3f}, bound "
+                        f"{r['launches']:g} launches, {r['readings']} profiler reading(s), "
+                        f"events {r['busy_ms']:.4f} (plain {r['plain_ms']:.3f}, bound "
                         f"{r['bound_ms']:.4f} by {r['bound_by']}; {ops / 1e9:.2f} GFLOP, "
                         f"{nbytes / 1e6:.1f} MB, kernels {ops / r['kernel_ms'] / 1e9:.1f} "
                         f"TFLOP/s)")
@@ -1270,7 +1304,6 @@ def main() -> int:
 
     phase_build()
     worst = phase_kernel_vs_plain(rng)
-    loss_worst = phase_loss_kernels_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
     phase_conv_library_free()
     bneck_worst = phase_bneck_kernels_vs_plain()
@@ -1295,11 +1328,12 @@ def main() -> int:
     print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
           f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
           f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
-    loss_entries = phase_loss_kernel_times(rng, train["launches"], loss_worst)
     paths = {"warmup": warm["launches"], "simt": train["launches"], "eval": launches}
     variants = {"warmup": warm["variants"], "simt": train["variants"], "eval": eval_variants}
     conv_entries = phase_conv_times(paths, variants, conv_worst)
     bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
+    loss_worst = phase_loss_kernels_vs_plain(rng)
+    loss_entries = phase_loss_kernel_times(train["launches"], loss_worst)
 
     print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries, *bneck_entries]}))
     print(smi)

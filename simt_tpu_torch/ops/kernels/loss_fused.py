@@ -23,21 +23,26 @@ of ``sums`` and returns ``dxcat``, ``dT1``, ``dT2``.
 
 ``loss_core_fwd`` / ``loss_core_bwd`` dispatch on the tensors' device: on the CPU they
 run ``loss_core_fwd_reference`` / ``loss_core_bwd_reference``; on a CUDA device they
-launch the kernel of ``csrc/loss_fused.cu`` (and add one to their ``launches``) or
-raise. They never fall back.
+launch the kernel of ``csrc/loss_fused.cu`` once (and add one to their ``launches``) or
+raise. They never fall back. Both kernels walk the blocks of ``schedule``, a pure
+function of the shapes, and finish inside their one launch: the block that draws the
+last integer ticket sums the others' partials in a fixed order, so reruns are bitwise
+equal. Their tickets, anchor keys and presence words live in a buffer per (device,
+stream) that each launch leaves zero.
 
-The plain forward computes each upsampled logit, softmax denominator and picked
-posterior with the kernel's own operations in the kernel's order (the two taps as a
-rounded product sum, channel sums in ascending order), so on the card the two agree
-exactly in every count, argmax, anchor maximum and anchor index, and up to summation
-order in the sums.
+The plain forward computes each upsampled logit, softmax denominator, reciprocal and
+picked posterior with the kernel's own operations in the kernel's order (the two taps
+as a rounded product sum, channel sums in ascending order, ``sm = e * (1 / den)``), so
+on the card the two agree exactly in every count, argmax, anchor maximum and anchor
+index, and up to summation order in the sums.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -65,14 +70,13 @@ def _taps(h8: int, w8: int, hh: int, ww: int, device) -> dict:
             "w0_w": as_t(w0_w), "w1_w": as_t(w1_w)}
 
 
-def _source_ranges(lo: np.ndarray, hi: np.ndarray, n_src: int) -> Tuple[np.ndarray,
-                                                                        np.ndarray]:
-    """For each source index j, the half-open range of output indices whose lo or hi
-    tap is j (contiguous: both taps are non-decreasing). Empty ranges are (0, 0)."""
+def _source_ranges(tap: np.ndarray, n_src: int) -> Tuple[np.ndarray, np.ndarray]:
+    """For each source index j, the half-open range of output indices whose ``tap`` is
+    j (contiguous: the taps are non-decreasing). Empty ranges are (0, 0)."""
     begin = np.zeros(n_src, np.int64)
     end = np.zeros(n_src, np.int64)
     for j in range(n_src):
-        hit = np.nonzero((lo == j) | (hi == j))[0]
+        hit = np.nonzero(tap == j)[0]
         if hit.size:
             begin[j], end[j] = hit[0], hit[-1] + 1
     return begin, end
@@ -81,16 +85,143 @@ def _source_ranges(lo: np.ndarray, hi: np.ndarray, n_src: int) -> Tuple[np.ndarr
 @functools.lru_cache(maxsize=16)
 def device_tables(h8: int, w8: int, hh: int, ww: int,
                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' tables on ``device``: int32 [lo_h(H), hi_h(H), lo_w(W), hi_w(W),
-    col_begin(w8), col_end(w8), row_begin(h8), row_end(h8)] and float32 [w0_h(H),
-    w1_h(H), w0_w(W), w1_w(W)]."""
+    """The kernels' tap tables on ``device``: int32 [lo_h(H), hi_h(H), lo_w(W), hi_w(W),
+    lo_begin(w8), lo_end(w8), hi_begin(w8), hi_end(w8)] (the output columns whose lo or
+    hi tap is each source column) and float32 [w0_h(H), w1_h(H), w0_w(W), w1_w(W)]."""
     lo_h, hi_h, w0_h, w1_h = interp_taps(h8, hh)
     lo_w, hi_w, w0_w, w1_w = interp_taps(w8, ww)
-    cb, ce = _source_ranges(lo_w, hi_w, w8)
-    rb, re = _source_ranges(lo_h, hi_h, h8)
-    ints = np.concatenate([lo_h, hi_h, lo_w, hi_w, cb, ce, rb, re]).astype(np.int32)
+    ints = np.concatenate([lo_h, hi_h, lo_w, hi_w, *_source_ranges(lo_w, w8),
+                           *_source_ranges(hi_w, w8)]).astype(np.int32)
     floats = np.concatenate([w0_h, w1_h, w0_w, w1_w]).astype(np.float32)
     return torch.from_numpy(ints).to(device), torch.from_numpy(floats).to(device)
+
+
+# The kernels' grid (csrc/loss_fused.cu): blocks of 256 threads, a lane pair a pixel, so
+# one pass covers PASS_PIXELS output columns; two blocks an SM on the card's 132 SMs.
+BLOCK_THREADS = 256
+PASS_PIXELS = BLOCK_THREADS // 2
+NUM_SMS = 132
+BLOCKS_PER_SM = 2
+BLOCK_FIELDS = 10  # b, r0, r1, c0, c1, jlo, jhi, i0, i1, part
+DT_GROUP = 16  # blocks whose dT partials the last of them sums (csrc kDtGroup)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """The blocks of both kernels: ``blocks`` (n, BLOCK_FIELDS) int32, each block's
+    image b, output rows [r0, r1), output columns [c0, c1), the source columns [jlo,
+    jhi] and source rows [i0, i1] they read, and the offset of its dxcat partial
+    ((i1 - i0 + 1) x (jhi - jlo + 1) x cat floats) in B3's scratch; ``row_off`` /
+    ``row_blk``, for each source row (b, i) in batch-major order, the blocks whose rows
+    read it, in ascending order. ``jmax`` / ``kmax`` are the most source columns / rows
+    a block reads, ``maxc`` the most blocks a source row has, ``part_floats`` the
+    partials' total."""
+    blocks: np.ndarray
+    row_off: np.ndarray
+    row_blk: np.ndarray
+    jmax: int
+    kmax: int
+    maxc: int
+    part_floats: int
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def n_groups(self) -> int:
+        return -(-self.n_blocks // DT_GROUP)
+
+
+def _edges(n: int, parts: int) -> np.ndarray:
+    return np.asarray([k * n // parts for k in range(parts + 1)])
+
+
+def _bands(batch: int, h8: int, w8: int, hh: int, splits: int, jmax: int, cat: int,
+           num_classes: int, lo_h: np.ndarray, hi_h: np.ndarray) -> int:
+    """Bands an image: at least as many as make NUM_SMS * BLOCKS_PER_SM blocks over the
+    batch, and then the fewest whose B3 block fits BLOCKS_PER_SM to an SM, else one to an
+    SM (a larger batch runs more waves of shorter bands; the target when none fits)."""
+    target = max(1, min(hh, round(NUM_SMS * BLOCKS_PER_SM / (batch * splits))))
+
+    def smem(bands: int) -> int:
+        r = _edges(hh, bands)
+        i0, i1 = lo_h[r[:-1]], hi_h[r[1:] - 1]
+        cover = np.zeros(h8 + 1, np.int64)  # bands reading each source row
+        np.add.at(cover, i0, 1)
+        np.add.at(cover, i1 + 1, -1)
+        return _bwd_smem(int((i1 - i0).max()) + 1, jmax, int(cover.cumsum().max()) * splits,
+                         w8, cat, num_classes)
+
+    for limit in (_SM_SMEM // BLOCKS_PER_SM - _BLOCK_RESERVED, _MAX_SMEM):
+        for bands in range(target, hh + 1):
+            if smem(bands) <= limit:
+                return bands
+    return target
+
+
+@functools.lru_cache(maxsize=16)
+def schedule(batch: int, h8: int, w8: int, hh: int, ww: int, cat: int,
+             num_classes: int) -> Schedule:
+    """Bands of contiguous output rows of one image, each split across the width into
+    segments of at most PASS_PIXELS columns (one pass a row): ceil(W / 128) segments and
+    as many bands as ``_bands`` gives (one wave of NUM_SMS * BLOCKS_PER_SM blocks at the
+    main path's shapes; every band at least one row). Blocks in batch, band, segment
+    order. A pure function of the shapes: the order in which partials are summed is
+    fixed by it."""
+    lo_h, hi_h, _, _ = interp_taps(h8, hh)
+    lo_w, hi_w, _, _ = interp_taps(w8, ww)
+    splits = -(-ww // PASS_PIXELS)
+    c_edges = _edges(ww, splits)
+    jmax = int((hi_w[c_edges[1:] - 1] - lo_w[c_edges[:-1]]).max()) + 1
+    r_edges = _edges(hh, _bands(batch, h8, w8, hh, splits, jmax, cat, num_classes, lo_h,
+                                hi_h))
+    rows, part = [], 0
+    contrib = [[] for _ in range(batch * h8)]
+    for b in range(batch):
+        for r0, r1 in zip(r_edges[:-1], r_edges[1:]):
+            i0, i1 = int(lo_h[r0]), int(hi_h[r1 - 1])
+            for c0, c1 in zip(c_edges[:-1], c_edges[1:]):
+                jlo, jhi = int(lo_w[c0]), int(hi_w[c1 - 1])
+                for i in range(i0, i1 + 1):
+                    contrib[b * h8 + i].append(len(rows))
+                rows.append((b, r0, r1, c0, c1, jlo, jhi, i0, i1, part))
+                part += (i1 - i0 + 1) * (jhi - jlo + 1) * cat
+    blocks = np.asarray(rows, np.int32).reshape(-1, BLOCK_FIELDS)
+    row_off = np.cumsum([0] + [len(c) for c in contrib]).astype(np.int32)
+    row_blk = np.asarray([n for c in contrib for n in c], np.int32)
+    return Schedule(blocks, row_off, row_blk,
+                    int((blocks[:, 6] - blocks[:, 5]).max()) + 1,
+                    int((blocks[:, 8] - blocks[:, 7]).max()) + 1,
+                    int(np.diff(row_off).max()), part)
+
+
+@functools.lru_cache(maxsize=16)
+def device_schedule(batch: int, h8: int, w8: int, hh: int, ww: int, cat: int,
+                    num_classes: int,
+                    device: torch.device) -> Tuple[Schedule, torch.Tensor, int, int]:
+    """``schedule`` and its tables on ``device`` as one int32 tensor [blocks, row_off,
+    row_blk], with the element offsets of row_off and row_blk."""
+    s = schedule(batch, h8, w8, hh, ww, cat, num_classes)
+    flat = np.concatenate([s.blocks.ravel(), s.row_off, s.row_blk]).astype(np.int32)
+    off = s.blocks.size
+    return s, torch.from_numpy(flat).to(device), off, off + s.row_off.size
+
+
+# The per-(device, stream) words both kernels leave zero: B2's anchor keys (uint64, up
+# to 2 x 34), presence (int32) and ticket, then B3's tickets.
+_KEY_WORDS = 4 * 34
+_PRES_WORD, _FWD_TICKET, _BWD_TICKETS = _KEY_WORDS, _KEY_WORDS + 68, _KEY_WORDS + 72
+_WORDS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _words(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 words for ``stream``, zero whenever no launch on it runs."""
+    t = _WORDS.get((device, stream))
+    if t is None or t.numel() < n:  # zeroed on the current stream, which is ``stream``
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _WORDS[(device, stream)] = t
+    return t
 
 
 def _upsample_rows(xcat: torch.Tensor, taps: dict, r0: int, r1: int) -> torch.Tensor:
@@ -138,11 +269,11 @@ def _head(p: torch.Tensor, pseudo: torch.Tensor, refined: torch.Tensor,
     e = torch.exp(p - mx[..., None])
     den = _seq_sum(e)
     lz = mx + torch.log(den)
-    sm = e / den[..., None]
+    rcp = 1.0 / den  # the kernel's one correctly rounded reciprocal
+    sm = e * rcp[..., None]
     ignore_t = torch.full_like(pseudo, ignore)
 
-    pred_max = 1.0 / den
-    known = torch.where((pseudo < c) & (pred_max > threshold_high), pseudo, ignore_t)
+    known = torch.where((pseudo < c) & (rcp > threshold_high), pseudo, ignore_t)
     onehot_arg = ch == pseudo[..., None]
     predict = torch.where(onehot_arg, torch.zeros_like(p), p)
     predict_open = torch.where(ch >= c, predict, torch.zeros_like(p))
@@ -265,7 +396,7 @@ def _head_grad(h: dict, g: torch.Tensor, ignore: int):
         return (soft - oh) * _valid(lbl, ignore)[..., None].float()
 
     d = g[0] * ce_grad(sm, h["refined"]) + g[2] * ce_grad(sm, h["known"])
-    smu = h["eu"] / h["denu"][..., None]
+    smu = h["eu"] * (1.0 / h["denu"])[..., None]
     d_unk = g[4] * ce_grad(smu, h["place_y"])
     d = d + torch.where(h["onehot_arg"], torch.zeros_like(d_unk), d_unk)
     # A valid label >= C picks no column of q: it adds inf to the loss and nothing here.
@@ -274,6 +405,26 @@ def _head_grad(h: dict, g: torch.Tensor, ignore: int):
     dsm = h["tcol"] * dq[..., None]
     d = d + sm * (dsm - (dsm * sm).sum(dim=-1, keepdim=True))
     return d, sm * dq[..., None]
+
+
+def _chunk_cotangents(g_sums, xcat, label, conf, t1, t2, taps, r0, r1, c, threshold_high,
+                      ignore):
+    """Output rows [r0, r1): the per-pixel cotangents (B, rows, W, cat) of both heads'
+    upsampled logits, and per head (sm * dq (B, rows, W, C+O), label column (B, rows, W),
+    has_y (B, rows, W)), the terms whose sum over the pixels of each label is dT."""
+    total = t1.shape[0]
+    z = _upsample_rows(xcat, taps, r0, r1)
+    p1, p2 = z[..., :total], z[..., total:]
+    pseudo2 = torch.argmax(p2, dim=-1)
+    refined = _refine(conf[:, r0:r1], pseudo2, c, ignore)
+    dps, dts = [], []
+    for hd, (p, t) in enumerate(((p1, t1), (p2, t2))):
+        h = _head(p, torch.argmax(p, dim=-1), refined, label[:, r0:r1], t.float(), c,
+                  threshold_high, ignore)
+        d, smdq = _head_grad(h, g_sums[hd], ignore)
+        dps.append(d)
+        dts.append((smdq, h["ysafe"], h["has_y"]))
+    return torch.cat(dps, dim=-1), dts
 
 
 def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
@@ -287,30 +438,22 @@ def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
     b, h8, w8, cat = xcat.shape
     hh, ww = label.shape[1:]
     total = t1.shape[0]
-    c = num_classes
     taps = _taps(h8, w8, hh, ww, xcat.device)
     xcat = xcat.float()
     g_sums = g_sums.float()
     dx = torch.zeros_like(xcat)
-    dts = [torch.zeros((total, c), dtype=torch.float32, device=xcat.device)
+    dts = [torch.zeros((total, num_classes), dtype=torch.float32, device=xcat.device)
            for _ in range(2)]
     with torch.no_grad():
         for r0, r1 in _row_chunks(hh, chunk_rows):
-            z = _upsample_rows(xcat, taps, r0, r1)
-            p1, p2 = z[..., :total], z[..., total:]
-            pseudo2 = torch.argmax(p2, dim=-1)
-            refined = _refine(conf[:, r0:r1], pseudo2, c, ignore_label)
-            dps = []
-            for hd, (p, t) in enumerate(((p1, t1), (p2, t2))):
-                h = _head(p, torch.argmax(p, dim=-1), refined, label[:, r0:r1],
-                          t.float(), c, threshold_high, ignore_label)
-                d, smdq = _head_grad(h, g_sums[hd], ignore_label)
-                dps.append(d)
+            dz_out, terms = _chunk_cotangents(g_sums, xcat, label, conf, t1, t2, taps, r0,
+                                              r1, num_classes, threshold_high,
+                                              ignore_label)
+            for hd, (smdq, ysafe, has_y) in enumerate(terms):
                 # dT[k, y] += sm[k] * dq at each valid pixel's label column y < C.
-                keep = h["has_y"].reshape(-1)
-                dts[hd].T.index_add_(0, h["ysafe"].reshape(-1)[keep],
+                keep = has_y.reshape(-1)
+                dts[hd].T.index_add_(0, ysafe.reshape(-1)[keep],
                                      smdq.reshape(-1, total)[keep])
-            dz_out = torch.cat(dps, dim=-1)  # (B, rows, W, cat)
             dz = torch.zeros((b, r1 - r0, w8, cat), dtype=torch.float32,
                              device=xcat.device)
             dz.index_add_(2, taps["lo_w"], taps["w0_w"][:, None] * dz_out)
@@ -334,7 +477,8 @@ def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
     ``conf`` (B, H, W) uint8 teacher labels, ``t1``/``t2`` (C+O, C) float32.
 
     CPU tensors: the plain version (``chunk_rows`` is its streaming chunk). CUDA
-    tensors: one launch of kernel B2 (``csrc/loss_fused.cu``), or an exception.
+    tensors: one launch of kernel B2 (``csrc/loss_fused.cu``), or an exception;
+    no fill or copy launches around it.
     """
     _check(xcat, label, conf, t1, t2, num_classes)
     if xcat.device.type == "cpu":
@@ -347,9 +491,10 @@ def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
     total = cat // 2
     dev = xcat.device
     taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
-    partials = torch.empty((b * hh, 16), dtype=torch.float32, device=dev)
-    keys = torch.zeros((2 * total,), dtype=torch.int64, device=dev)
-    present_i = torch.zeros((2 * total,), dtype=torch.int32, device=dev)
+    sched, tabs, _, _ = device_schedule(b, h8, w8, hh, ww, cat, num_classes, dev)
+    stream = _stream(dev)
+    words = _words(dev, stream, _BWD_TICKETS)
+    partials = torch.empty((sched.n_blocks, 16), dtype=torch.float32, device=dev)
     sums = torch.empty((2, 8), dtype=torch.float32, device=dev)
     amax = torch.empty((2, total), dtype=torch.float32, device=dev)
     aidx = torch.empty((2, total), dtype=torch.int32, device=dev)
@@ -357,10 +502,11 @@ def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
     lib = _lib()
     err = lib.simt_loss_core_fwd(
         xcat.data_ptr(), label.data_ptr(), conf.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-        taps_i.data_ptr(), taps_f.data_ptr(), partials.data_ptr(), keys.data_ptr(),
-        present_i.data_ptr(), sums.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
-        presence.data_ptr(), b, h8, w8, hh, ww, num_classes, total,
-        float(threshold_high), int(ignore_label), _stream(dev))
+        taps_i.data_ptr(), taps_f.data_ptr(), tabs.data_ptr(), sched.n_blocks,
+        sched.jmax, partials.data_ptr(), words.data_ptr(), _word(words, _PRES_WORD),
+        _word(words, _FWD_TICKET), sums.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
+        presence.data_ptr(), h8, w8, hh, ww, num_classes, total,
+        float(threshold_high), int(ignore_label), stream)
     _raise_on(lib, err, "loss_core_fwd")
     loss_core_fwd.launches += 1
     return sums, amax, aidx, presence
@@ -389,18 +535,25 @@ def loss_core_bwd(g_sums: torch.Tensor, xcat: torch.Tensor, label: torch.Tensor,
     total = cat // 2
     dev = xcat.device
     taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
+    sched, tabs, off_row, off_blk = device_schedule(b, h8, w8, hh, ww, cat, num_classes,
+                                                    dev)
+    stream = _stream(dev)
+    words = _words(dev, stream, _BWD_TICKETS + b * h8 + sched.n_groups + 1)
     g = g_sums.detach().to(device=dev, dtype=torch.float32).contiguous()
-    dz_rows = torch.empty((b, hh, w8, cat), dtype=torch.float32, device=dev)
-    dt_part = torch.empty((b * hh, 2, total, num_classes), dtype=torch.float32,
-                          device=dev)
+    tc = cat * num_classes
+    part = torch.empty((sched.part_floats,), dtype=torch.float32, device=dev)
+    dt_part = torch.empty((sched.n_blocks, tc), dtype=torch.float32, device=dev)
+    dt_grp = torch.empty((sched.n_groups, tc), dtype=torch.float32, device=dev)
     dx = torch.empty_like(xcat)
     dt = torch.empty((2, total, num_classes), dtype=torch.float32, device=dev)
     lib = _lib()
     err = lib.simt_loss_core_bwd(
         g.data_ptr(), xcat.data_ptr(), label.data_ptr(), conf.data_ptr(), t1.data_ptr(),
-        t2.data_ptr(), taps_i.data_ptr(), taps_f.data_ptr(), dz_rows.data_ptr(),
-        dt_part.data_ptr(), dx.data_ptr(), dt.data_ptr(), b, h8, w8, hh, ww,
-        num_classes, total, float(threshold_high), int(ignore_label), _stream(dev))
+        t2.data_ptr(), taps_i.data_ptr(), taps_f.data_ptr(), tabs.data_ptr(),
+        sched.n_blocks, _word(tabs, off_row), _word(tabs, off_blk), sched.jmax,
+        sched.kmax, sched.maxc, part.data_ptr(), dt_part.data_ptr(), dt_grp.data_ptr(),
+        _word(words, _BWD_TICKETS), dx.data_ptr(), dt.data_ptr(), b, h8, w8, hh, ww,
+        num_classes, total, float(threshold_high), int(ignore_label), stream)
     _raise_on(lib, err, "loss_core_bwd")
     loss_core_bwd.launches += 1
     return dx, dt[0], dt[1]
@@ -438,7 +591,7 @@ class SimTLossCore(torch.autograd.Function):
 
 # Per-pixel operation counts of the kernels' cost model (csrc/loss_fused.cu): the
 # W taps of both heads (3 per channel); per head in the forward max, subtract, exp,
-# add and divide for the softmax (5), the same four for the placeholder's suppressed
+# add and multiply for the softmax (5), the same four for the placeholder's suppressed
 # logits (4), two for the picked posterior and three argmax compares (14 per channel);
 # in the backward the forward's 9 plus the suppressed softmax again (3), the four
 # cotangent terms (12), the posterior and dT products (5): 29 per channel; the
@@ -447,17 +600,34 @@ class SimTLossCore(torch.autograd.Function):
 _FWD_PER_PIXEL_CH = 3 * 2 + 14 * 2  # per head channel, both heads
 _BWD_PER_PIXEL_CH = 3 * 2 + 29 * 2 + 4 * 2
 
+# Peaks of an H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32 (non-tensor-core)
+# flop/s, and the special-function units' results/s (16 a clock on each of 132 SMs at
+# the 1.98 GHz boost clock: expf, logf and reciprocals).
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+PEAK_SFU_S = 16 * 132 * 1.98e9
+
 
 def work(batch: int, h8: int, w8: int, hh: int, ww: int, num_classes: int,
-         open_classes: int) -> dict:
-    """Bytes and float32 operations each kernel needs for one call at these shapes:
-    each input read once and each output written once (xcat f32, label int32, conf
-    uint8, both T; the forward's 64 output floats, the backward's dxcat and dT), and
-    the operations of the kernels' cost model above. Returns {"fwd": (bytes, ops),
-    "bwd": (bytes, ops)}."""
+         open_classes: int, place: int | None = None,
+         labelled: int | None = None) -> dict:
+    """Bytes, float32 operations and special-function operations each kernel needs for
+    one call at these shapes: each input read once and each output written once (xcat
+    f32, label int32, conf uint8, both T; the forward's 64 output floats, the backward's
+    dxcat and dT), the operations of the kernels' cost model above, and per head and
+    pixel the softmax's C+O expf and one reciprocal, with the forward's logf of the
+    denominator; where the placeholder's label is valid (``place`` head-pixels) the
+    suppressed softmax's C+O expf and a logf (forward) or a reciprocal (backward); where
+    the label is valid (``labelled`` head-pixels) the posterior's logf (forward) or
+    reciprocal (backward). ``place`` and ``labelled`` are what the data needs (the
+    forward's counts sums[:, 5] and sums[:, 7] give them); None counts every head-pixel.
+    Returns {"fwd": (bytes, ops, sfu), "bwd": (bytes, ops, sfu)}."""
     total = num_classes + open_classes
     cat = 2 * total
     pixels = batch * hh * ww
+    head_pixels = 2 * pixels
+    place = head_pixels if place is None else int(place)
+    labelled = head_pixels if labelled is None else int(labelled)
     x_bytes = batch * h8 * w8 * cat * 4
     t_bytes = 2 * total * num_classes * 4
     in_bytes = x_bytes + pixels * (4 + 1) + t_bytes
@@ -466,7 +636,41 @@ def work(batch: int, h8: int, w8: int, hh: int, ww: int, num_classes: int,
     h_step = batch * hh * w8 * cat * 3
     fwd_ops = pixels * total * _FWD_PER_PIXEL_CH + h_step
     bwd_ops = pixels * total * _BWD_PER_PIXEL_CH + h_step + batch * hh * w8 * cat * 4
-    return {"fwd": (fwd_bytes, fwd_ops), "bwd": (bwd_bytes, bwd_ops)}
+    sfu = head_pixels * (total + 1) + place * (total + 1) + labelled
+    return {"fwd": (fwd_bytes, fwd_ops, sfu + head_pixels),
+            "bwd": (bwd_bytes, bwd_ops, sfu)}
+
+
+def bound(nbytes: float, ops: float, sfu: float) -> Tuple[float, str, str]:
+    """(ms, bound_by, term): the least time the card could take for ``work``'s counts,
+    the largest of the bytes at PEAK_BYTES_S, the float32 operations at PEAK_F32_FLOP_S
+    and the special-function operations at PEAK_SFU_S; ``bound_by`` is "bytes" or
+    "operations", ``term`` names the binding one ("bytes", "float32" or "sfu")."""
+    terms = {"bytes": nbytes / PEAK_BYTES_S, "float32": ops / PEAK_F32_FLOP_S,
+             "sfu": sfu / PEAK_SFU_S}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
+# Shared memory of an SM on sm_90 (233,472 bytes), the most one block can take
+# (232,448) and what the runtime reserves for each block (1 KB).
+_SM_SMEM, _MAX_SMEM, _BLOCK_RESERVED = 233472, 232448, 1024
+
+
+def _bwd_smem(kmax: int, jmax: int, maxc: int, w8: int, cat: int, num_classes: int) -> int:
+    """Bytes of shared memory of B3's block (csrc/loss_fused.cu::bwd_smem; B2's is
+    smaller): the finish's block lists and the segment's tap ranges, the W weights, both
+    heads' T and the warps' dT, then the H step, the cotangent tile and the band's
+    accumulator of kmax source rows (or, in the finish, one source row)."""
+    ints = 4 + ((kmax + 3) & ~3) + 3 * ((maxc + 3) & ~3) + 4 * jmax
+    loop = jmax * cat + PASS_PIXELS * (cat + 1) + kmax * jmax * cat
+    floats = (2 * PASS_PIXELS + (1 + BLOCK_THREADS // 32) * cat * num_classes
+              + max(loop, w8 * cat))
+    return 4 * (ints + floats)
+
+
+def bwd_smem_bytes(sched: Schedule, w8: int, total: int, num_classes: int) -> int:
+    return _bwd_smem(sched.kmax, sched.jmax, sched.maxc, w8, 2 * total, num_classes)
 
 
 def _check(xcat, label, conf, t1, t2, num_classes) -> None:
@@ -500,9 +704,17 @@ def _check(xcat, label, conf, t1, t2, num_classes) -> None:
     if not all(t.is_contiguous() for t in (xcat, label, conf, t1, t2)):
         raise ValueError("CUDA kernel takes contiguous tensors")
     b, hh, ww = label.shape
-    if b * hh * ww >= 2**31 or b > 65535 or hh > 65535:
-        raise ValueError("batch x H x W must stay below 2**31 (int32 anchor indices), "
-                         "batch and H below 65536 (the grid)")
+    if b * hh * ww >= 2**31:
+        raise ValueError("batch x H x W must stay below 2**31 (int32 anchor indices)")
+    sched = schedule(b, xcat.shape[1], xcat.shape[2], hh, ww, 2 * total, num_classes)
+    if bwd_smem_bytes(sched, xcat.shape[2], total, num_classes) > _MAX_SMEM:
+        raise ValueError(f"a block of {sched.jmax} source columns x {sched.kmax} rows "
+                         f"needs more than {_MAX_SMEM} bytes of shared memory")
+
+
+def _word(t: torch.Tensor, i: int) -> int:
+    """The address of element ``i`` of the int32 tensor ``t``."""
+    return t.data_ptr() + 4 * i
 
 
 def _stream(dev: torch.device) -> int:
@@ -519,9 +731,10 @@ def _raise_on(lib, err: int, name: str) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("loss_fused")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.simt_loss_core_fwd.argtypes = [p] * 14 + [i] * 7 + [f, i, p]
+    lib.simt_loss_core_fwd.argtypes = [p] * 8 + [i] * 2 + [p] * 8 + [i] * 6 + [f, i, p]
     lib.simt_loss_core_fwd.restype = i
-    lib.simt_loss_core_bwd.argtypes = [p] * 12 + [i] * 7 + [f, i, p]
+    lib.simt_loss_core_bwd.argtypes = ([p] * 9 + [i] + [p] * 2 + [i] * 3 + [p] * 6
+                                       + [i] * 7 + [f, i, p])
     lib.simt_loss_core_bwd.restype = i
     lib.simt_cuda_error_string.argtypes = [i]
     lib.simt_cuda_error_string.restype = ctypes.c_char_p

@@ -38,6 +38,12 @@ TRUNK_640 = (("eval640_layer1", 161, 321, 64, 1), ("eval640_layer2", 81, 161, 12
              ("eval640_layer3", 81, 161, 256, 2), ("eval640_layer4", 81, 161, 512, 4))
 SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 11, 14)
 KERNEL_WORD = "conv3x3_"  # every kernel of csrc/conv3x3.cu is named conv3x3_*
+PROFILE_PAD_S = 0.05  # host wait at each end of a profiler session (profile_kernels)
+# A profiled call's launches must sum to its device time by events (busy_ms) within
+# PROFILE_TOL of it plus PROFILE_TOL_MS (the gaps between launches), or the reading is
+# taken again, up to PROFILE_READINGS times (checked_launches).
+PROFILE_TOL, PROFILE_TOL_MS, PROFILE_READINGS = 0.15, 0.01, 3
+SPIN_CYCLES = 50_000_000  # ~25 ms at 1.98 GHz: longer than the host takes to issue a timing
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -55,20 +61,63 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def busy_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` by CUDA events, every device operation of a call
+    included but not the host's pace: a spin kernel keeps the card busy while the host
+    issues the ``iters`` calls, so they run back to back on the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def checked_launches(fn, iters: int) -> dict:
+    """One call's launches in order, [(name, device ms)], from
+    ``profile_kernels(ordered=True)``, held to ``busy_ms``: a reading whose launches do
+    not sum to the events' time (PROFILE_TOL, PROFILE_TOL_MS) is taken again, up to
+    PROFILE_READINGS readings (the profiler can drop a kernel's record or cut its time
+    short). Returns ``seq`` (the first reading that agrees, else the one with the most
+    launches), ``busy_ms``, ``readings`` taken and ``agrees``."""
+    busy = busy_ms(fn, iters)
+    best = None
+    for reading in range(1, PROFILE_READINGS + 1):
+        seq = profile_kernels(fn, iters, ordered=True)
+        agrees = abs(sum(ms for _, ms in seq) - busy) <= PROFILE_TOL * busy + PROFILE_TOL_MS
+        if best is None or len(seq) > len(best):
+            best = seq
+        if agrees:
+            best = seq
+            break
+    return {"seq": best, "busy_ms": busy, "readings": reading, "agrees": agrees}
+
+
 def profile_kernels(fn, iters: int, ordered: bool = False):
     """{kernel name: (launches, device ms)} of ``iters`` calls of ``fn`` under
     torch.profiler, after 3 warm-up calls. With ``ordered``, the list of one call's
     launches in launch order instead, [(name, device ms)], each the mean over the calls
     at that position: one profiler session a call, and only the calls with the most
     launches recorded count (the profiler can drop a kernel's record; a call with a gap
-    would shift every later position)."""
+    would shift every later position). Each session waits PROFILE_PAD_S on the host
+    before and after its calls: late in a long process, sessions that ended right after
+    the synchronize lost the records of their last kernels, a whole short call's at
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(calls: int) -> list:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         return sorted((e for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and not e.is_user_annotation), key=lambda e: e.time_range.start)

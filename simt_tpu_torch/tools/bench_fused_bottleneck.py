@@ -54,7 +54,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..device import resolve_device
-from .bench_conv3x3 import cuda_ms, profile_kernels
+from .bench_conv3x3 import checked_launches, cuda_ms
 
 # (name, H, W, trunk channels Ct, planes P, dilation) of the trunk's identity blocks at
 # a 512x1024 crop.
@@ -100,6 +100,7 @@ def package(root: str) -> SimpleNamespace:
     return SimpleNamespace(
         root=root, kernels=importlib.import_module(name + ".ops.kernels.bottleneck"),
         op=importlib.import_module(name + ".ops.bottleneck"),
+        loss_fused=importlib.import_module(name + ".ops.kernels.loss_fused"),
         layers=importlib.import_module(name + ".models.layers"))
 
 
@@ -147,13 +148,15 @@ def time_bneck(calls: dict, iters: int = 20) -> dict:
     """{op: times} of ``bneck_calls``: ``ms`` (CUDA events, the wrapper back to back),
     ``kernel_ms`` (profiler, the call's ``bneck_`` kernels), ``launches`` of those a
     call, and ``per_launch``: [kernel name, device ms] of every launch of one call in
-    launch order (the mean over ``iters`` calls)."""
+    launch order (the mean over ``iters`` calls), read by ``checked_launches``
+    (``busy_ms``, the call's device time by events; ``readings``; ``agrees``)."""
     out = {}
     for op, call in calls.items():
-        seq = profile_kernels(call, iters, ordered=True)
+        got = checked_launches(call, iters)
+        seq = got.pop("seq")
         ours = [ms for n, ms in seq if KERNEL_WORD in n]
         out[op] = {"ms": cuda_ms(call, iters), "kernel_ms": sum(ours),
-                   "launches": len(ours), "per_launch": [[n, ms] for n, ms in seq]}
+                   "launches": len(ours), "per_launch": [[n, ms] for n, ms in seq], **got}
     return out
 
 

@@ -25,16 +25,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("loss_p1", "loss_p2", "loss_y1", "loss_y2", "place", "anchor")
 
 
-def _inputs(seed, c=5, o=3, b=1, h8=9, w8=13, hh=40, ww=72):
-    """The tests/test_fused_losses.py fixture, made with numpy."""
+CELL = 16  # pixels a side of a ``regions`` label cell
+
+
+def _inputs(seed, c=5, o=3, b=1, h8=9, w8=13, hh=40, ww=72, labels="iid"):
+    """The tests/test_fused_losses.py fixture, made with numpy. ``labels="regions"``
+    gives a label map constant over 16x16-pixel cells (15% of the cells 255), the
+    structure of a real pseudo-label."""
     total = c + o
     rng = np.random.RandomState(seed)
     x1 = (rng.randn(b, h8, w8, total) * 2).astype(np.float32)
     x2 = (rng.randn(b, h8, w8, total) * 2).astype(np.float32)
     tl = rng.randn(b, h8, w8, c).astype(np.float32) * 3
     tp8 = np.array(jax.nn.softmax(jnp.asarray(tl), -1))
-    label = rng.randint(0, c, (b, hh, ww)).astype(np.int32)
-    label[rng.rand(b, hh, ww) < 0.15] = 255
+    if labels == "regions":
+        cells = rng.randint(0, c, (b, -(-hh // CELL), -(-ww // CELL))).astype(np.int32)
+        cells[rng.rand(*cells.shape) < 0.15] = 255
+        label = np.repeat(np.repeat(cells, CELL, 1), CELL, 2)[:, :hh, :ww].copy()
+    else:
+        label = rng.randint(0, c, (b, hh, ww)).astype(np.int32)
+        label[rng.rand(b, hh, ww) < 0.15] = 255
     t1, t2 = (np.array(jax.nn.softmax(jnp.asarray(rng.randn(total, c).astype(np.float32)), -1))
               for _ in range(2))
     return x1, x2, tp8, label, t1, t2
@@ -59,9 +69,10 @@ def _total(d):
             + d["place"] + d["anchor"])
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_values_match_jax(seed):
-    args = _inputs(seed)
+@pytest.mark.parametrize("seed,labels", [(0, "iid"), (1, "iid"), (2, "regions")],
+                         ids=["0", "1", "2-regions"])
+def test_values_match_jax(seed, labels):
+    args = _inputs(seed, labels=labels)
     got, want = _port(args), _jax(args)
     for k in KEYS:
         assert float(got[k]) == pytest.approx(float(want[k]), rel=2e-4, abs=2e-5), k
@@ -104,11 +115,12 @@ def pallas_block():
     return mod.loss_block_pallas
 
 
-@pytest.mark.parametrize("b", [1, 2])
-def test_values_and_gradients_match_pallas_interpret(pallas_block, b):
+@pytest.mark.parametrize("b,labels", [(1, "iid"), (2, "iid"), (2, "regions")],
+                         ids=["1", "2", "2-regions"])
+def test_values_and_gradients_match_pallas_interpret(pallas_block, b, labels):
     """Against the TPU kernels B2/B3 themselves, at test_pallas_loss.py's geometry."""
     c, o = 4, 2
-    args = _inputs(10 + b, c=c, o=o, b=b, h8=9, w8=17, hh=64, ww=128)
+    args = _inputs(10 + b, c=c, o=o, b=b, h8=9, w8=17, hh=64, ww=128, labels=labels)
     kw = dict(c=c, o=o, chunk_rows=16, threshold_high=0.6, threshold_low=0.3)
     x1, x2, tp8, label, t1, t2 = args
 
@@ -235,3 +247,19 @@ def test_work_counts_bytes_and_operations():
     assert w["fwd"][0] == in_bytes + (16 + 6 * 34) * 4
     assert w["bwd"][0] == in_bytes + 64 + x_bytes + 2 * 34 * 19 * 4
     assert w["fwd"][1] == 512 * 1024 * 34 * 34 + 512 * 129 * 68 * 3
+    # Special-function operations: per head and pixel 34 expf, a reciprocal and (the
+    # forward) a logf; with every head-pixel labelled and placed, the suppressed
+    # softmax's 34 expf and a logf or reciprocal, and the posterior's logf or reciprocal.
+    head_pixels = 2 * 512 * 1024
+    assert w["bwd"][2] == head_pixels * (35 + 35 + 1)
+    assert w["fwd"][2] == head_pixels * (35 + 35 + 1 + 1)
+    few = lf.work(1, 65, 129, 512, 1024, 19, 15, place=0, labelled=1000)
+    assert few["bwd"][2] == head_pixels * 35 + 1000
+    assert few["fwd"][2] == head_pixels * 36 + 1000
+    # The bound: the largest of the three times, named.
+    ms, by, term = lf.bound(*w["fwd"])
+    assert (by, term) == ("operations", "sfu")
+    assert ms == pytest.approx(w["fwd"][2] / (16 * 132 * 1.98e9) * 1e3)
+    assert lf.bound(3.35e9, 1.0, 1.0)[1:] == ("bytes", "bytes")
+    ms, by, term = lf.bound(1.0, 67e9, 1.0)
+    assert ms == pytest.approx(1.0) and (by, term) == ("operations", "float32")
