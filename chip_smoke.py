@@ -7,7 +7,12 @@ Phases (any failure exits non-zero before the last line is printed):
   1. build: compile every CUDA source of the package with nvcc for sm_90a, in parallel;
   2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
      (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
-     zero operand) and edge cases; the trunk's dilated 3x3 conv
+     zero operand; iid gt and 64x64 regions aligned to the warps and shifted off them)
+     and edge cases, each with uint8 and int32 gt, run twice, with out= into a running
+     histogram and (at 1024x2048) as 4 row blocks, all equal bit for bit to the
+     kernel's own arithmetic (``bench_eval_fused.kernel_arithmetic``), and one case
+     through ``multiscale_argmax_hist_spatial`` on a one-rank NCCL group; the trunk's
+     dilated 3x3 conv
      (B4 forward and input gradient, B5 weight gradient) at the four trunk geometries
      of a 512x1024 input in bf16 at batch 1 and 2, at those of the eval path's 640x1280
      input at batch 1, in float32 at a small one, and on edge cases (3 -> 5
@@ -28,7 +33,8 @@ Phases (any failure exits non-zero before the last line is printed):
      (each count must equal the path's own, 0 for a kernel it does not run; every B4/B5
      launch must be of the wgmma variant):
      the two-scale ``evaluate(device="cuda")`` of a full-width open-set
-     DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images; the SimT train step of
+     DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images (every head call with uint8
+     gt into the one running histogram); the SimT train step of
      ``tools/train_simt.py`` (full-width student and teacher with seeded random
      weights, batch 1, 512x1024 synthetic batches, bf16 autocast); the warmup train
      step of ``tools/train_warmup.py`` (full-width closed-set model, the same inputs).
@@ -41,7 +47,10 @@ Phases (any failure exits non-zero before the last line is printed):
      conv2 on cuDNN;
   5. times: per-scale forward (and with conv2 on cuDNN), each kernel against its
      plain version, its bound and, where one exists, a library call computing the
-     same function; B4/B5 at the four trunk geometries by the wrappers' time (CUDA
+     same function; B1 on the iid, regions and shifted gt maps as the eval path calls
+     it and with int32 gt, by the wrapper's time (CUDA events) and its kernel's device
+     time (profiler), with every device operation of a call (one, or the run fails;
+     ``tools/bench_eval_fused.py``'s timing); B4/B5 at the four trunk geometries by the wrappers' time (CUDA
      events, ``ms``) and their kernels' device time
      (profiler, ``kernel_ms``), cuDNN by the same two clocks, with the tiles, splits
      and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing);
@@ -69,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -77,6 +87,7 @@ import sys
 import tempfile
 import time
 from typing import Tuple
+from unittest import mock
 
 import numpy as np
 import torch
@@ -99,6 +110,11 @@ from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # 
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
                                                 PROFILE_PAD_S, conv_calls, cuda_ms,
                                                 profile_kernels, time_conv)
+from simt_tpu_torch.tools.bench_conv3x3 import checked_launches, time_launches  # noqa: E402
+from simt_tpu_torch.tools.bench_eval_fused import KERNEL_WORD as HEAD_WORD  # noqa: E402
+from simt_tpu_torch.tools.bench_eval_fused import bound as head_bound  # noqa: E402
+from simt_tpu_torch.tools.bench_eval_fused import (head_calls, head_inputs,  # noqa: E402
+                                                   kernel_arithmetic)
 from simt_tpu_torch.tools.bench_loss_fused import (LABEL_MAPS, loss_calls,  # noqa: E402
                                                    loss_inputs, make_maps, step_inputs,
                                                    time_loss)
@@ -106,15 +122,14 @@ from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noq
                                   make_simt_step, make_warmup_step)
 from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
 
+eval_module = importlib.import_module("simt_tpu_torch.eval.evaluate")
 SEED = 0
 C = 19
 OUT_HW = (1024, 2048)
 LOGIT_HW = ((65, 129), (81, 161))  # stride-8 maps of the 512x1024 and 640x1280 inputs
 N_IMAGES = 4
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor-core) flop/s,
-# bf16 dense tensor-core flop/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 dense tensor-core flop/s.
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
 
 
@@ -133,59 +148,117 @@ def phase_build() -> None:
     print(f"build total: {time.perf_counter() - t0:.2f} s")
 
 
-def eval_inputs(rng: np.random.Generator, batch: int, hw_a=LOGIT_HW[0], hw_b=LOGIT_HW[1],
-                out_hw=OUT_HW, c=C, zero_b=False):
-    dev = "cuda"
-    la = torch.from_numpy((rng.standard_normal((batch, *hw_a, c)) * 3)
-                          .astype(np.float32)).to(dev)
-    lb = torch.from_numpy((rng.standard_normal((batch, *hw_b, c)) * 3)
-                          .astype(np.float32)).to(dev)
-    if zero_b:
-        lb.zero_()
-    gt = rng.integers(0, c + 5, size=(batch, *out_hw)).astype(np.int32)  # >= c: invalid
-    gt[rng.random((batch, *out_hw)) < 0.2] = 255
-    return la, lb, torch.from_numpy(gt).to(dev)
-
-
+# B1 against its plain version: equal totals, and L1 at most 2e-5 of the pixels (at
+# least 2): a near-tie argmax flip moves two counts, and the plain version's matmuls
+# round the upsample otherwise than the kernel's fma. Against the kernel's own
+# arithmetic (bench_eval_fused.kernel_arithmetic, float32 fma emulated exactly): equal
+# bit for bit, as every rerun, every gt width, out= and the row blocks' sum must be.
 def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
-    """eval_fused against its plain version; returns the worst errors seen.
+    """eval_fused against its plain version and its own arithmetic; returns the worst
+    errors seen.
 
-    The main path's shapes, then edge cases off that path: ragged row and column
-    counts, another class count, a single output pixel, and more than 48 KB of
-    shared memory (the opt-in launch attribute).
+    The main path's shapes on the iid, regions and shifted gt maps (batch 1 and 2;
+    warmup's 1x1 zero operand), then edge cases off that path: ragged row and column
+    counts, another class count, a single output pixel, and more than 48 KB of shared
+    memory (the opt-in launch attribute). Each case with uint8 and int32 gt, twice each,
+    and with out= into a running histogram; the main-shape cases also as 4 row blocks of
+    256 rows; one case through multiscale_argmax_hist_spatial on a one-rank NCCL group.
     """
-    worst = {"max_abs_err": 0, "l1_err": 0, "match": True}
+    worst = {"max_abs_err": 0, "l1_err": 0, "match": True, "exact": True}
     cases = {"batch1": dict(batch=1), "batch2": dict(batch=2),
              "warmup_zero_1x1": dict(batch=1, hw_b=(1, 1), zero_b=True),
              "edge_ragged_c5": dict(batch=2, hw_a=(7, 13), hw_b=(3, 4), out_hw=(37, 301),
                                     c=5),
              "edge_single_pixel": dict(batch=1, hw_a=(4, 6), hw_b=(1, 1), out_hw=(1, 1)),
              "edge_smem_over_48k": dict(batch=1, hw_a=(9, 400), hw_b=(11, 300),
-                                        out_hw=(64, 1000))}
+                                        out_hw=(64, 1000)),
+             "regions": dict(batch=1, gt="regions"), "shifted": dict(batch=1, gt="shifted"),
+             "regions_batch2": dict(batch=2, gt="regions"),
+             "edge_nan_inf": dict(batch=2, hw_a=(7, 13), hw_b=(3, 4), out_hw=(37, 301))}
+    # The gt-map cases draw from a generator of their own, so the phases after this one
+    # draw from ``rng`` what they drew before those cases were added.
+    maps_rng = np.random.default_rng(SEED + 1)
     for name, kw in cases.items():
-        la, lb, gt = eval_inputs(rng, **kw)
+        la, lb, gt = head_inputs(maps_rng if "gt" in kw or name == "edge_nan_inf" else rng,
+                                 **kw)
+        if name == "edge_nan_inf":  # NaN, inf and values whose sums overflow
+            bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e38], device="cuda")
+            for x in (la, lb):
+                hit = torch.rand(x.shape, generator=torch.Generator("cuda").manual_seed(SEED),
+                                 device="cuda") < 0.02
+                x[hit] = bad[torch.arange(int(hit.sum()), device="cuda") % 4]
         out_hw, c = kw.get("out_hw", OUT_HW), kw.get("c", C)
-        got = eval_fused.multiscale_argmax_hist(la, lb, gt, out_hw=out_hw, num_classes=c)
-        want = eval_fused.multiscale_argmax_hist_reference(la, lb, gt, out_hw=out_hw,
-                                                           num_classes=c)
+        hw = dict(out_hw=out_hw, num_classes=c)
+        exact = kernel_arithmetic(la, lb, gt, **hw)
+        want = eval_fused.multiscale_argmax_hist_reference(la, lb, gt, **hw)
+        runs = {}
+        for dt in (torch.int32, torch.uint8):
+            g = gt.to(dt)
+            runs[str(dt)[6:]] = [eval_fused.multiscale_argmax_hist(la, lb, g, **hw)
+                                 for _ in range(2)]
+        running = torch.arange(c * c, dtype=torch.int32, device="cuda").reshape(c, c) * 977
+        acc = eval_fused.multiscale_argmax_hist(la, lb, gt.to(torch.uint8), out=running.clone(),
+                                                **hw)
+        checks = {f"{k} run {i}": torch.equal(h, exact) for k, hs in runs.items()
+                  for i, h in enumerate(hs)}
+        checks["out="] = torch.equal(acc, running + exact)
+        if out_hw == OUT_HW:
+            rows = OUT_HW[0] // 4
+            parts = [eval_fused.multiscale_argmax_hist(la, lb, gt.to(torch.uint8),
+                                                       row_range=(i * rows, rows), **hw)
+                     for i in range(4)]
+            checks["4 row blocks"] = torch.equal(sum(parts), exact)
+        if name == "batch1":
+            checks["spatial, one NCCL rank"] = torch.equal(spatial_one_rank(la, lb, gt),
+                                                           exact)
         torch.cuda.synchronize()
-        got, want = got.cpu().long(), want.cpu().long()
+        got, want = runs["int32"][0].cpu().long(), want.cpu().long()
         counted = int(((gt >= 0) & (gt < c)).sum())
         l1 = int((got - want).abs().sum())
         mx = int((got - want).abs().max())
-        # A near-tie argmax flip moves two counts; FMA contraction differs from the
-        # plain version's rounding.
         limit = max(2.0, 2e-5 * out_hw[0] * out_hw[1] * kw["batch"])
         ok = int(got.sum()) == int(want.sum()) == counted and l1 <= limit
+        if name == "edge_nan_inf":
+            # The plain version's matmuls spread a NaN or inf over every output the dense
+            # row touches (0 * inf), so only the totals compare; the kernel's own
+            # arithmetic, held bit for bit below, is the reference here.
+            ok = int(got.sum()) == int(want.sum()) == counted
+        same = all(checks.values())
         print(f"eval_fused vs plain [{name}]: total {int(got.sum())}/{int(want.sum())} "
               f"(counted {counted}), L1 {l1} (limit {limit:.0f}), max abs {mx}: "
-              f"{'ok' if ok else 'MISMATCH'}")
-        worst["max_abs_err"] = max(worst["max_abs_err"], mx)
-        worst["l1_err"] = max(worst["l1_err"], l1)
+              f"{'ok' if ok else 'MISMATCH'}; equal to its own arithmetic bit for bit: "
+              + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in checks.items()))
+        if name != "edge_nan_inf":
+            worst["max_abs_err"] = max(worst["max_abs_err"], mx)
+            worst["l1_err"] = max(worst["l1_err"], l1)
         worst["match"] = worst["match"] and ok
+        worst["exact"] = worst["exact"] and same
     if not worst["match"]:
         fail("eval_fused kernel disagrees with its plain version")
+    if not worst["exact"]:
+        fail("eval_fused kernel differs from its own arithmetic, between reruns, gt "
+             "widths, out= or row blocks")
     return worst
+
+
+def spatial_one_rank(la, lb, gt) -> torch.Tensor:
+    """multiscale_argmax_hist_spatial through a one-rank NCCL group on this card."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        hist = eval_fused.multiscale_argmax_hist_spatial(la, lb, gt, out_hw=OUT_HW,
+                                                         num_classes=C)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    return hist
 
 
 def phase_small_reference(tmp: str) -> None:
@@ -216,11 +289,20 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     kw = dict(data_root=paths["root"], val_list=paths["val_txt"], gt_dir=paths["gt_dir"],
               mode="simt", return_hist=True, device="cuda", print_fn=lambda s: None)
     evaluate(model, **kw)  # warm-up: cuDNN plans, allocator
-    lines = []
+    lines, heads, first = [], [], []
+    head = eval_module.multiscale_argmax_hist
+
+    def record(a, b, gt, **hkw):  # what evaluate hands the head, checked below
+        heads.append((gt.dtype, hkw.get("out"), hkw.get("row_range")))
+        if not first:
+            first.append((a.clone(), b.clone(), gt.clone(), hkw))
+        return head(a, b, gt, **hkw)
+
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    miou, hist = evaluate(model, **dict(kw, print_fn=lines.append))
+    with mock.patch.object(eval_module, "multiscale_argmax_hist", record):
+        miou, hist = evaluate(model, **dict(kw, print_fn=lines.append))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, variants = read_counts(), read_variants()
@@ -232,6 +314,21 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     check_counts("eval", launches, {"multiscale_argmax_hist": N_IMAGES,
                                     "conv3x3_fwd": 2 * N_CONV2 * N_IMAGES})
     check_wgmma("eval", variants)
+    # One device operation an image for the head: every call adds into the one running
+    # histogram (no fill, no add) with uint8 gt, and that call, replayed on the first
+    # image's inputs under the profiler, is its kernel alone.
+    outs = {id(out) for _, out, _ in heads}
+    a, b, gt, hkw = first[0]
+    scratch = torch.zeros_like(hkw["out"])
+    seq = checked_launches(lambda: head(a, b, gt, **dict(hkw, out=scratch)), 5)["seq"]
+    print(f"eval head calls: {len(heads)}, gt {sorted({str(d) for d, _, _ in heads})}, "
+          f"into {len(outs)} running histogram(s); device operations of one call: "
+          f"{[n for n, _ in seq]}")
+    if (len(heads) != N_IMAGES or len(outs) != 1 or any(o is None for _, o, _ in heads)
+            or any(d != torch.uint8 or r is not None for d, _, r in heads)):
+        fail(f"eval head: {heads} (want {N_IMAGES} uint8 calls into one running histogram)")
+    if len(seq) != 1 or HEAD_WORD not in seq[0][0]:
+        fail(f"eval head: device operations of one call {seq}, want its kernel alone")
     if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
         fail(f"main path histogram total {hist.sum()} or mIoU {miou} is wrong")
     return launches, seconds, variants
@@ -257,15 +354,32 @@ def phase_forward_times(model: torch.nn.Module) -> list:
     return times
 
 
-def phase_kernel_times(rng: np.random.Generator, launches: dict, worst: dict) -> dict:
-    la, lb, gt = eval_inputs(rng, batch=1)
-    dev = la.device
-    taps_i, taps_f = eval_fused.device_taps(*LOGIT_HW[0], *LOGIT_HW[1], OUT_HW, dev)
-    hist = torch.zeros((C, C), dtype=torch.int32, device=dev)
-    kernel_ms = cuda_ms(lambda: eval_fused.launch(la, lb, gt, taps_i, taps_f, hist),
-                        iters=200)
-    wrapper_ms = cuda_ms(lambda: eval_fused.multiscale_argmax_hist(
-        la, lb, gt, out_hw=OUT_HW, num_classes=C), iters=200)
+def phase_kernel_times(launches: dict, worst: dict) -> dict:
+    """B1 on the iid, regions and shifted gt maps (``bench_eval_fused.head_inputs`` from
+    SEED), as the eval path calls it (uint8 gt, ``out=`` the running histogram) and with
+    int32 gt, timed by ``bench_conv3x3.time_launches``: ``ms`` the wrapper back to back
+    (CUDA events), ``kernel_ms`` its kernel (profiler, held to the events' device time),
+    every device operation of one call (one, its kernel, or the run fails), host us. The
+    bound from ``work()`` with each map's counted pixels and gt width; the plain version
+    and one library chain (interpolate, argmax, bincount) on iid."""
+    maps = {m: head_inputs(np.random.default_rng(SEED), gt=m)
+            for m in ("iid", "regions", "shifted")}
+    by_gt = {}
+    for m, (la, lb, gt) in maps.items():
+        by_gt[m] = time_launches(head_calls(eval_fused, la, lb, gt), HEAD_WORD)
+        for form, r in by_gt[m].items():
+            r.update(head_bound(gt, gt.to(getattr(torch, form)).element_size()))
+            print(f"multiscale_argmax_hist [{m}, {form} gt, out=]: wrapper {r['ms']:.4f} ms, "
+                  f"kernel {r['kernel_ms']:.4f} ms, {r['device_ops']} device operation(s) a "
+                  "call: " + "; ".join(f"{n} {ms:.4f}" for n, ms in r["per_launch"])
+                  + f"; host {r['host_us']:.1f} us; bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']}; events {r['busy_ms']:.4f} ms, {r['readings']} profiler "
+                  f"reading(s), kernel ms by {r['kernel_ms_by']}")
+            if r["launches"] != 1 or r["device_ops"] != 1:
+                fail(f"multiscale_argmax_hist [{m}, {form}]: {r['device_ops']} device "
+                     f"operations a call ({r['launches']} of its kernel), want its kernel "
+                     "alone")
+    la, lb, gt = maps["iid"]
     plain_ms = cuda_ms(lambda: eval_fused.multiscale_argmax_hist_reference(
         la, lb, gt, out_hw=OUT_HW, num_classes=C), iters=20)
     la_nchw = la.permute(0, 3, 1, 2).contiguous()
@@ -280,23 +394,25 @@ def phase_kernel_times(rng: np.random.Generator, launches: dict, worst: dict) ->
         return torch.bincount(C * g[k] + pred[k], minlength=C * C)
 
     library_ms = cuda_ms(library, iters=20)
-    counted = int(((gt >= 0) & (gt < C)).sum())
-    nbytes, ops = eval_fused.work(*LOGIT_HW[0], *LOGIT_HW[1], OUT_HW, C, batch=1,
-                                  n_counted=counted)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOP_S * 1e3
+    main = by_gt["iid"]["uint8"]
+    keys = ("ms", "kernel_ms", "kernel_ms_by", "busy_ms", "device_ops", "host_us",
+            "bound_ms", "counted")
     return {
         "name": "multiscale_argmax_hist", "route": "cuda",
         "source": "simt_tpu_torch/csrc/eval_fused.cu",
         "replaces": "simt_tpu/ops/pallas/eval_fused.py:35",
         "launches": launches["multiscale_argmax_hist"],
         "max_abs_err": worst["max_abs_err"], "l1_err": worst["l1_err"],
-        "match": worst["match"],
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "bytes": nbytes, "ops": ops,
-        "shape": "la 1x65x129x19 f32, lb 1x81x161x19 f32, gt 1x1024x2048 i32 -> 19x19 i32",
+        "match": worst["match"], "exact": worst["exact"],
+        "ms": main["ms"], "kernel_ms": main["kernel_ms"],
+        "kernel_ms_by": main["kernel_ms_by"], "device_ops": main["device_ops"],
+        "host_us": main["host_us"], "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": library_ms,
+        "bytes": main["bytes"], "ops": main["ops"],
+        "by_gt": {m: {form: {k: r[k] for k in keys} for form, r in t.items()}
+                  for m, t in by_gt.items()},
+        "shape": "la 1x65x129x19 f32, lb 1x81x161x19 f32, gt 1x1024x2048 u8 -> 19x19 i32 "
+                 "(accumulated in place)",
     }
 
 
@@ -1323,7 +1439,7 @@ def main() -> int:
         warm = phase_warmup_main_path()
     torch.cuda.empty_cache()
     bench = phase_bneck_bench()
-    entry = phase_kernel_times(rng, launches, worst)
+    entry = phase_kernel_times(launches, worst)
     device_ms = sum(forward_ms) + entry["kernel_ms"]
     print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
           f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "

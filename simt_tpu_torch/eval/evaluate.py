@@ -7,7 +7,9 @@
     align-corners bilinear (:108) and summed across scales in simt mode; warmup mode
     uses the 1024x512 scale only (:196-197);
   - argmax and the 19x19 confusion histogram on the device, in the fused CUDA kernel
-    (``ops/kernels/eval_fused.py``); only the histogram leaves the card;
+    (``ops/kernels/eval_fused.py``), which adds each batch into the running histogram
+    (one device operation); the gt crosses to the card as uint8; only the histogram
+    leaves the card;
   - batched inference (the reference is locked to batch 1).
 
 Ground-truth ``*_gtFine_labelIds.png`` files are read on the host and remapped through
@@ -15,7 +17,8 @@ Ground-truth ``*_gtFine_labelIds.png`` files are read on the host and remapped t
 
 Not in this slice: the JAX package's ``shard=`` (images across processes),
 ``mesh=`` (spatially sharded eval) and ``process_workers=`` wait for the parallel
-slice; ``evaluate`` does not take them.
+slice; ``evaluate`` does not take them. The row-sharded head that ``mesh=`` runs is
+ported (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``).
 """
 
 from __future__ import annotations
@@ -43,8 +46,9 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
 
     ``predict(image, image_640)`` -> (B, *out_hw) int64 prediction map, through the plain
     upsample + argmax (used when prediction PNGs are saved).
-    ``predict_hist(image, image_640, gt)`` -> (C, C) int32 histogram through the fused
-    kernel (on CUDA tensors; its plain version on CPU tensors).
+    ``predict_hist(image, image_640, gt, out=None)`` -> (C, C) int32 histogram through
+    the fused kernel (on CUDA tensors; its plain version on CPU tensors), added into
+    ``out`` when it is given.
     ``hist_update(hist, pred, gt)`` -> running histogram.
     Images are (B, H, W, 3) uint8 BGR (or float32 mean-subtracted) on the model's device.
     """
@@ -82,9 +86,10 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
         return torch.argmax(logits, dim=-1)
 
     @torch.inference_mode()
-    def predict_hist(image, image_640, gt):
+    def predict_hist(image, image_640, gt, out=None):
         a, b = scales(image, image_640)
-        return multiscale_argmax_hist(a, b, gt, out_hw=out_hw, num_classes=num_classes)
+        return multiscale_argmax_hist(a, b, gt, out_hw=out_hw, num_classes=num_classes,
+                                      out=out)
 
     def hist_update(hist, pred, gt):
         return hist + fast_hist(gt, pred, num_classes)
@@ -139,8 +144,11 @@ def evaluate(
         # Keep the full relative name (val lists carry 'frankfurt/...' city subdirs,
         # which the reference preserves, evaluate_cityscapes.py:141).
         gt_name = name.split("leftImg8bit")[0] + "gtFine_labelIds.png"
-        gt = np.asarray(Image.open(os.path.join(gt_dir, gt_name)))
-        return label_mapping(gt, mapping).astype(np.int32)
+        gt = label_mapping(np.asarray(Image.open(os.path.join(gt_dir, gt_name))), mapping)
+        if gt.size and (gt.min() < 0 or gt.max() > 255):
+            raise ValueError(f"{gt_name}: remapped labels outside [0, 255] "
+                             f"({gt.min()}..{gt.max()}) do not fit the uint8 gt")
+        return gt.astype(np.uint8)  # a quarter of int32's bytes to the card
 
     # Host gt decode overlaps the device work: one batch of decodes stays in flight.
     with ThreadPoolExecutor(max_workers=4) as pool:
@@ -159,7 +167,7 @@ def evaluate(
             image_640 = torch.from_numpy(batch_640["image"]).to(dev, non_blocking=True)
             gt = torch.from_numpy(gt_np).to(dev, non_blocking=True)
             if save_dir is None:
-                hist += predict_hist(image, image_640, gt)
+                predict_hist(image, image_640, gt, out=hist)  # the kernel adds in place
             else:
                 pred = predict(image, image_640)
                 hist = hist_update(hist, pred, gt)

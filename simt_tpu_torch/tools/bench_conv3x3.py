@@ -157,6 +157,34 @@ def host_us(fn, iters: int = 200) -> float:
     return us
 
 
+def short(name: str) -> str:
+    """A kernel's name without its namespace, return type and arguments."""
+    return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+def time_launches(calls: dict, word: str, iters: int = 20) -> dict:
+    """{name: times} of each call in ``calls``: ``ms`` (CUDA events, the wrapper back to
+    back), ``kernel_ms`` and ``launches`` (the call's kernels whose name holds ``word``),
+    ``device_ops`` (every device operation of a call, fills and copies included),
+    ``per_launch`` ([name, device ms] in launch order, the mean over ``iters`` calls) and
+    ``host_us``. The launches are ``checked_launches``' (its ``busy_ms``, ``readings`` and
+    ``agrees`` beside them): where no profiler reading agreed with the events and the call
+    is its one kernel, ``kernel_ms`` is the events' device time (``kernel_ms_by``)."""
+    out = {}
+    for op, call in calls.items():
+        got = checked_launches(call, iters)
+        seq = got.pop("seq")
+        ours = [ms for n, ms in seq if word in n]
+        by_events = not got["agrees"] and len(ours) == len(seq) == 1
+        out[op] = {"ms": cuda_ms(call, iters),
+                   "kernel_ms": got["busy_ms"] if by_events else sum(ours),
+                   "kernel_ms_by": "events" if by_events else "profiler",
+                   "launches": len(ours), "device_ops": len(seq),
+                   "per_launch": [[short(n), ms] for n, ms in seq],
+                   "host_us": host_us(call, 100), **got}
+    return out
+
+
 def conv_calls(conv3x3, x, wt, g, d) -> dict:
     """{op: (the wrapper's call, cuDNN's call of the same function)} for B4's forward and
     input gradient and B5 on ``x``, ``wt``, ``g``; ``conv3x3`` is the wrapper module."""

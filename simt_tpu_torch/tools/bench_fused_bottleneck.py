@@ -101,6 +101,7 @@ def package(root: str) -> SimpleNamespace:
         root=root, kernels=importlib.import_module(name + ".ops.kernels.bottleneck"),
         op=importlib.import_module(name + ".ops.bottleneck"),
         loss_fused=importlib.import_module(name + ".ops.kernels.loss_fused"),
+        eval_fused=importlib.import_module(name + ".ops.kernels.eval_fused"),
         layers=importlib.import_module(name + ".models.layers"))
 
 

@@ -50,7 +50,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from .bench_conv3x3 import checked_launches, cuda_ms, host_us, profile_kernels
+from .bench_conv3x3 import profile_kernels, short, time_launches
 from .bench_fused_bottleneck import _HERE, package
 
 _ROOT = __package__.split(".")[0]  # this module's own package, run with -m too
@@ -77,24 +77,33 @@ def loss_inputs(rng: np.random.Generator, batch: int, h8: int, w8: int, hh: int,
                             .astype(np.float32)).to(device)
     tp = torch.softmax(torch.from_numpy((rng.standard_normal((batch, h8, w8, C)) * 3)
                                         .astype(np.float32)), -1).to(device)
-    if labels == "iid":
-        label = rng.integers(0, C, (batch, hh, ww)).astype(np.int32)
-        label[rng.random((batch, hh, ww)) < 0.1] = 255
-    elif labels in ("regions", "shifted"):
-        dy, dx = rng.integers(1, CELL, 2) if labels == "shifted" else (0, 0)
-        ch, cw = -(-(hh + dy) // CELL), -(-(ww + dx) // CELL)
-        cells = rng.integers(0, C, (batch, ch, cw)).astype(np.int32)
-        cells[rng.random((batch, ch, cw)) < 0.1] = 255
-        label = np.repeat(np.repeat(cells, CELL, 1), CELL, 2)[:, dy:dy + hh, dx:dx + ww]
-        label = label.copy()
-    else:
-        raise ValueError(f"unknown label map {labels!r} (iid, regions or shifted)")
+    label = label_map(rng, labels, batch, hh, ww)
     conf = teacher_conf(tp, (hh, ww), num_classes=C, threshold_high=THRESHOLD_HIGH,
                         threshold_low=0.2)
     t1, t2 = (torch.softmax(torch.from_numpy(rng.standard_normal((tot, C))
                                              .astype(np.float32)), -1).to(device)
               for _ in range(2))
     return xcat, torch.from_numpy(label).to(device), conf, t1, t2
+
+
+def label_map(rng: np.random.Generator, labels: str, batch: int, hh: int, ww: int, *,
+              classes: int = C, ignore: float = 0.1, cell: int = CELL) -> np.ndarray:
+    """(batch, hh, ww) int32 labels from ``rng``: ``iid`` draws each pixel's class in
+    [0, classes) and sets a share ``ignore`` of the pixels to 255; ``regions`` draws one
+    class a ``cell`` x ``cell`` cell on a grid from the origin and sets that share of the
+    cells to 255; ``shifted`` moves that grid down and across by 1 to cell-1 pixels (drawn
+    first)."""
+    if labels == "iid":
+        label = rng.integers(0, classes, (batch, hh, ww)).astype(np.int32)
+        label[rng.random((batch, hh, ww)) < ignore] = 255
+        return label
+    if labels not in ("regions", "shifted"):
+        raise ValueError(f"unknown label map {labels!r} (iid, regions or shifted)")
+    dy, dx = rng.integers(1, cell, 2) if labels == "shifted" else (0, 0)
+    ch, cw = -(-(hh + dy) // cell), -(-(ww + dx) // cell)
+    cells = rng.integers(0, classes, (batch, ch, cw)).astype(np.int32)
+    cells[rng.random((batch, ch, cw)) < ignore] = 255
+    return np.repeat(np.repeat(cells, cell, 1), cell, 2)[:, dy:dy + hh, dx:dx + ww].copy()
 
 
 def simt_step(root: str, seed: int = 0):
@@ -186,32 +195,10 @@ def loss_calls(loss_fused, xcat, label, conf, t1, t2, g) -> dict:
             "bwd": lambda: loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2, **kw)}
 
 
-def short(name: str) -> str:
-    """A kernel's name without its namespace, return type and arguments."""
-    return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-
-
 def time_loss(calls: dict, iters: int = 20) -> dict:
-    """{op: times} of ``loss_calls``: ``ms`` (CUDA events, the wrapper back to back),
-    ``kernel_ms`` and ``launches`` (the call's ``loss_`` kernels), ``device_ops`` (every
-    device operation of a call, fills and copies included), ``per_launch`` ([name,
-    device ms] in launch order, the mean over ``iters`` calls) and ``host_us``. The
-    launches are ``checked_launches``' (its ``busy_ms``, ``readings`` and ``agrees``
-    beside them): where no profiler reading agreed with the events and the call is its
-    one kernel, ``kernel_ms`` is the events' device time (``kernel_ms_by``)."""
-    out = {}
-    for op, call in calls.items():
-        got = checked_launches(call, iters)
-        seq = got.pop("seq")
-        ours = [ms for n, ms in seq if KERNEL_WORD in n]
-        by_events = not got["agrees"] and len(ours) == len(seq) == 1
-        out[op] = {"ms": cuda_ms(call, iters),
-                   "kernel_ms": got["busy_ms"] if by_events else sum(ours),
-                   "kernel_ms_by": "events" if by_events else "profiler",
-                   "launches": len(ours), "device_ops": len(seq),
-                   "per_launch": [[short(n), ms] for n, ms in seq],
-                   "host_us": host_us(call, 100), **got}
-    return out
+    """{op: times} of ``loss_calls``: ``bench_conv3x3.time_launches`` on the call's
+    ``loss_`` kernels."""
+    return time_launches(calls, KERNEL_WORD, iters)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
