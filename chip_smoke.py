@@ -34,7 +34,8 @@ Phases (any failure exits non-zero before the last line is printed):
      launch must be of the wgmma variant):
      the two-scale ``evaluate(device="cuda")`` of a full-width open-set
      DeepLabv2-ResNet-101 over 4 synthetic 2048x1024 images (every head call with uint8
-     gt into the one running histogram); the SimT train step of
+     gt into the one running histogram), then timed again with process workers (its
+     histogram against the threads'); the SimT train step of
      ``tools/train_simt.py`` (full-width student and teacher with seeded random
      weights, batch 1, 512x1024 synthetic batches, bf16 autocast); the warmup train
      step of ``tools/train_warmup.py`` (full-width closed-set model, the same inputs).
@@ -42,6 +43,16 @@ Phases (any failure exits non-zero before the last line is printed):
      their parts, then 3 profiled steps for the device busy share, then the same step
      with every conv2 on cuDNN (a yardstick the port never calls) timed in turns
      against it; and three full-width warmup steps against conv2 on the plain taps;
+     the host input pipeline: a 12-image 2048x1024 fixture, the native preprocessing
+     against PIL bit for bit on this machine (2048x1024 -> 1024x512, images and labels),
+     ``device_prefetch`` under a consumer slower than the loader (order, content, no
+     second copy), then the full-width SimT step fed by ``build_loader`` (4 process
+     workers, native preprocessing, ``device_prefetch``), the crop cache off and then
+     on: 3 (14 with the cache) warm-up steps, 10 timed with every launch count zeroed
+     before and held after to the resident path's per step, 3 profiled steps, the same
+     step on those 3 batches with the loader stopped; the first 3 batches that reached
+     the step of each run against PIL's decode for the same seed;
+     the loader alone, host ms per item, processes and threads, native and PIL;
      the benchmark path of ``tools/bench_fused_bottleneck.py`` at layer3 (the fused
      block against the composed module, 10 calls a chain), and the same module with
      conv2 on cuDNN;
@@ -97,6 +108,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from simt_tpu_torch.config import (ModelConfig, OptimConfig, SimTConfig,  # noqa: E402
                                    TrainConfig)
+from simt_tpu_torch.data import device_prefetch, pipeline  # noqa: E402
 from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_batch  # noqa: E402
 from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
@@ -104,13 +116,14 @@ from simt_tpu_torch.models import layers  # noqa: E402
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
-from simt_tpu_torch.tools import bench_fused_bottleneck, train_simt, train_warmup  # noqa: E402
+from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, train_simt,  # noqa: E402
+                                  train_warmup)
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
-                                                PROFILE_PAD_S, conv_calls, cuda_ms,
-                                                profile_kernels, time_conv)
-from simt_tpu_torch.tools.bench_conv3x3 import checked_launches, time_launches  # noqa: E402
+                                                checked_launches, conv_calls, cuda_ms,
+                                                profile_kernels, profile_steps,
+                                                time_conv, time_launches)
 from simt_tpu_torch.tools.bench_eval_fused import KERNEL_WORD as HEAD_WORD  # noqa: E402
 from simt_tpu_torch.tools.bench_eval_fused import bound as head_bound  # noqa: E402
 from simt_tpu_torch.tools.bench_eval_fused import (head_calls, head_inputs,  # noqa: E402
@@ -118,8 +131,8 @@ from simt_tpu_torch.tools.bench_eval_fused import (head_calls, head_inputs,  # n
 from simt_tpu_torch.tools.bench_loss_fused import (LABEL_MAPS, loss_calls,  # noqa: E402
                                                    loss_inputs, make_maps, step_inputs,
                                                    time_loss)
-from simt_tpu_torch.train import (create_simt_state, create_warmup_state,  # noqa: E402
-                                  make_simt_step, make_warmup_step)
+from simt_tpu_torch.train import (build_loader, create_simt_state,  # noqa: E402
+                                  create_warmup_state, make_simt_step, make_warmup_step)
 from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
 
 eval_module = importlib.import_module("simt_tpu_torch.eval.evaluate")
@@ -331,6 +344,20 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
         fail(f"eval head: device operations of one call {seq}, want its kernel alone")
     if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
         fail(f"main path histogram total {hist.sum()} or mIoU {miou} is wrong")
+    # The same evaluation with process workers (two loaders of 4, spawned in the call).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist_p = evaluate(model, **dict(kw, process_workers=True))
+    torch.cuda.synchronize()
+    seconds_p = time.perf_counter() - t0
+    l1 = float(np.abs(hist_p - hist).sum())
+    print(f"main path, process workers: evaluate(simt) over {N_IMAGES} images: "
+          f"{seconds_p:.3f} s, {N_IMAGES / seconds_p:.3f} img/s, starting 8 worker "
+          f"processes included (threads: {seconds:.3f} s, {N_IMAGES / seconds:.3f} img/s); "
+          f"histogram L1 against the threads' {l1:.0f} (limit 1% of "
+          f"{N_IMAGES * OUT_HW[0] * OUT_HW[1]})")
+    if hist_p.sum() != hist.sum() or l1 > 0.01 * hist.sum():
+        fail(f"eval with process workers disagrees with threads: L1 {l1}")
     return launches, seconds, variants
 
 
@@ -568,8 +595,9 @@ def phase_small_steps(tmp: str) -> None:
         fail("the SimT step on the card disagrees with the CPU at the golden geometry")
 
 
-def phase_train_main_path(tmp: str) -> dict:
-    """The SimT step at full width through the CLI's own calls."""
+def simt_main_setup(tmp: str):
+    """The full-width SimT config, state and step through the CLI's own calls (a
+    uniform class prior, as the CLI's synthetic mode)."""
     args = train_simt.build_parser().parse_args(
         ["--synthetic", "--preset", "simt_bapa_lr25",
          "--num-steps-stop", str(2 + TIMED_STEPS)])
@@ -577,12 +605,17 @@ def phase_train_main_path(tmp: str) -> dict:
     cd = os.path.join(tmp, "cd_uniform.npy")
     np.save(cd, (np.ones(C) / C).astype(np.float32))
     cfg = cfg.replace(simt=dataclasses.replace(cfg.simt, class_dist=cd))
-    t0 = time.perf_counter()
     student, teacher = train_simt.build_models(cfg)
     state = create_simt_state(student, teacher, cfg,
                               torch.Generator().manual_seed(cfg.random_seed + 2), "cuda")
+    return cfg, state, make_simt_step(cfg)
+
+
+def phase_train_main_path(tmp: str) -> dict:
+    """The SimT step at full width through the CLI's own calls."""
+    t0 = time.perf_counter()
+    cfg, state, step = simt_main_setup(tmp)
     batches = train_simt.synthetic_batches(cfg, cfg.num_steps_stop, torch.device("cuda"))
-    step = make_simt_step(cfg)
     torch.cuda.synchronize()
     print(f"train set-up (models, state, {len(batches)} synthetic 512x1024 batches): "
           f"{time.perf_counter() - t0:.1f} s")
@@ -597,6 +630,186 @@ def phase_train_main_path(tmp: str) -> dict:
         {"loss_core_fwd": want, "loss_core_bwd": want,
          "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * want,
          "conv3x3_wgrad": N_CONV2_L34 * want})
+
+
+# ---------------------------------------------------------------------------------
+# The host input pipeline: the SimT step fed from PNGs on disk by build_loader
+# ---------------------------------------------------------------------------------
+
+PIPE_STEPS = 10  # timed pipeline steps a run (crop cache off, then on)
+PIPE_RECORDED = 3  # the first batches that reached the step, held to PIL's decode
+LOADER_ITEMS = 24  # items the loader is timed over alone
+
+
+def check_native_vs_pil(paths: dict) -> None:
+    """The native library against PIL, bit for bit, on this machine's Pillow: the
+    fixture's first image and label, 2048x1024 -> 1024x512 (as the loader decodes them,
+    with and without the mirror), and the raw resizes."""
+    import PIL
+    from PIL import Image
+
+    from simt_tpu_torch.data import _native_preproc
+
+    with open(paths["pseudo_lst"]) as f:
+        img_rel, lab_rel = f.readline().split()
+    img, lab = (os.path.join(paths["root"], r) for r in (img_rel, lab_rel))
+    crop = (TRAIN_HW[1], TRAIN_HW[0])
+    out = {}
+    for use in (True, False):
+        pipeline.USE_NATIVE = use
+        out[use] = ([pipeline.load_image_bgr_u8(img, crop, mirror=m) for m in (False, True)]
+                    + [pipeline.load_label(lab, crop)])
+    pipeline.USE_NATIVE = True
+    rgb = np.asarray(Image.open(img).convert("RGB"))
+    raw = np.asarray(Image.open(lab))
+    pairs = out[True] + [_native_preproc.resize_bicubic(rgb, *TRAIN_HW),
+                         _native_preproc.resize_nearest(raw, *TRAIN_HW)]
+    want = out[False] + [np.asarray(Image.fromarray(rgb).resize(crop, Image.BICUBIC)),
+                         np.asarray(Image.fromarray(raw).resize(crop, Image.NEAREST))]
+    equal = [bool(a.shape == b.shape and np.array_equal(a, b)) for a, b in zip(pairs, want)]
+    print(f"native vs PIL (Pillow {PIL.__version__}) at {rgb.shape[1]}x{rgb.shape[0]} -> "
+          f"{crop[0]}x{crop[1]}, image / mirrored image / label / bicubic / nearest "
+          f"equal bit for bit: {equal}")
+    if not all(equal):
+        fail("native preprocessing differs from PIL on this machine")
+
+
+def check_prefetch_slow_consumer() -> None:
+    """``device_prefetch`` under a consumer slower than the loader: 8 distinct 512x1024
+    batches, each read on the card only after a spin kernel of ~5 ms on the consuming
+    stream, must arrive in order with their own bytes; a placed tensor is not copied
+    again by ``torch.as_tensor``."""
+    rng = np.random.default_rng(SEED)
+    host = [rng.integers(0, 256, (1, *TRAIN_HW, 3), dtype=np.uint8) for _ in range(8)]
+    source = ({"image": h, "name": [str(i)]} for i, h in enumerate(host))
+    ok, sums = True, []
+    for i, b in enumerate(device_prefetch(source, size=2, device="cuda")):
+        # No host sync in the loop: each batch's memory is freed while the spin and the
+        # sum that read it are still queued, and the copies of later batches run.
+        torch.cuda._sleep(10_000_000)
+        sums.append((b["image"].to(torch.int64) * torch.arange(
+            3, device="cuda").add(1)).sum())
+        ok = ok and b["name"] == [str(i)] and (
+            torch.as_tensor(b["image"], device="cuda") is b["image"])
+    want = [int((h.astype(np.int64) * np.arange(1, 4)).sum()) for h in host]
+    ok = ok and [int(x) for x in sums] == want
+    print(f"device_prefetch, consumer slower than the loader: 8 batches in order, "
+          f"checksums equal, no second copy: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("device_prefetch lost the order or the content of its batches")
+
+
+def loader_alone(cfg) -> dict:
+    """The loader's host ms per item alone, threads against processes and native
+    against PIL (``bench.loader_ms_per_item``)."""
+    out = {}
+    for procs in (True, False):
+        for native in (True, False):
+            c = cfg.replace(data=dataclasses.replace(
+                cfg.data, process_workers=procs, use_native_preproc=native))
+            first, per_item = bench.loader_ms_per_item(c, LOADER_ITEMS)
+            key = f"{'processes' if procs else 'threads'}/{'native' if native else 'PIL'}"
+            out[key] = per_item
+            print(f"loader alone, {cfg.data.num_workers} {key}: first batch {first:.3f} s, "
+                  f"{per_item:.3f} host ms per item over {LOADER_ITEMS} items")
+    pipeline.USE_NATIVE = True
+    return out
+
+
+def phase_pipeline(tmp: str, resident: dict) -> dict:
+    """The SimT step at full width fed from PNGs on disk: a 12-image 2048x1024 fixture,
+    ``build_loader`` with process workers, native preprocessing and ``device_prefetch``,
+    the crop cache off and then on. Holds the first batches that reached the step to
+    PIL's decode for the same seed, and the B2/B3/B4/B5 launches a step to the resident
+    path's."""
+    t0 = time.perf_counter()
+    paths = make_cityscapes_fixture(os.path.join(tmp, "pipeline"), n_train=12, n_val=0,
+                                    image_wh=(OUT_HW[1], OUT_HW[0]), seed=SEED)
+    print(f"pipeline fixture: 12 images and pseudo-labels at {OUT_HW[1]}x{OUT_HW[0]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_native_vs_pil(paths)
+    check_prefetch_slow_consumer()
+    cfg, state, step = simt_main_setup(tmp)
+    per_step = {k: v // TIMED_STEPS for k, v in resident["launches"].items()}
+    recorded = {False: [], True: []}
+    out = {}
+    for cache in (False, True):
+
+        def recording_step(st, batch):
+            if len(recorded[cache]) < PIPE_RECORDED:
+                recorded[cache].append({k: (v.cpu() if torch.is_tensor(v) else v)
+                                        for k, v in batch.items()})
+            return step(st, batch)
+
+        pcfg = bench.pipeline_config(cfg, paths["root"], paths["pseudo_lst"], TRAIN_HW,
+                                     os.path.join(tmp, "crop_cache") if cache else "")
+        name = "crop cache " + ("on" if cache else "off")
+        t0 = time.perf_counter()
+        batches = build_loader(pcfg, device="cuda")
+        try:
+            warm = 14 if cache else 3  # with the cache, epoch 1 (12 items) fills it
+            for _ in range(warm):
+                m = recording_step(state, next(batches))
+            float(m["loss"])
+            print(f"pipeline ({name}): {warm} warm-up steps in "
+                  f"{time.perf_counter() - t0:.1f} s, worker start-up included")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PIPE_STEPS):
+                m = step(state, next(batches))
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / PIPE_STEPS * 1e3
+            launches = read_counts()
+            if not math.isfinite(float(m["loss"])):
+                fail(f"pipeline ({name}): non-finite loss {float(m['loss'])}")
+            check_counts(f"pipeline ({name})", launches,
+                         {k: v * PIPE_STEPS for k, v in per_step.items()})
+            drawn = [next(batches) for _ in range(3)]
+            device_ms = profile_steps(step, state, drawn, report=False)
+        finally:
+            batches.close()
+        # The same step on batches drawn from the pipeline, with the loader stopped: what
+        # running the loader beside the step costs the step.
+        drawn_ms, _ = timed_steps(step, state, drawn, n=PIPE_STEPS)
+        print(f"main path: SimT step from build_loader ({name}; {pcfg.data.num_workers} "
+              f"process workers, native preprocessing, device_prefetch), full width, batch "
+              f"1, 512x1024: {PIPE_STEPS} steps, {wall_ms:.3f} ms per step, "
+              f"{1e3 / wall_ms:.3f} steps/s (resident batch: {resident['wall_ms']:.3f} ms, "
+              f"{1e3 / resident['wall_ms']:.3f} steps/s; 3 uint8 batches drawn from the "
+              f"pipeline, loader stopped: {drawn_ms:.3f} ms); device {device_ms:.3f} ms per "
+              f"step (profiler), busy share {device_ms / wall_ms:.3f}; last loss "
+              f"{float(m['loss']):.4f}")
+        out[name] = {"wall_ms": wall_ms, "device_ms": device_ms, "launches": launches,
+                     "drawn_ms": drawn_ms}
+
+    # The first batches that reached the step, against the PIL plain path's decode.
+    plain = cfg.replace(data=dataclasses.replace(
+        bench.pipeline_config(cfg, paths["root"], paths["pseudo_lst"], TRAIN_HW).data,
+        use_native_preproc=False, process_workers=False))
+    it = build_loader(plain, device="cpu")
+    want = [next(it) for _ in range(PIPE_RECORDED)]
+    it.close()
+    pipeline.USE_NATIVE = True
+    ok = True
+    for cache, got in recorded.items():
+        ok = ok and len(got) == PIPE_RECORDED and all(
+            g["name"] == w["name"] and g["mirror"] == w["mirror"]
+            and g["image"].dtype == w["image"].dtype == torch.uint8
+            and torch.equal(g["image"], w["image"]) and torch.equal(g["label"], w["label"])
+            for g, w in zip(got, want))
+    print(f"pipeline: first {PIPE_RECORDED} batches at the step, crop cache off and on "
+          f"({[r['name'] for r in recorded[False]]}, mirror "
+          f"{[r['mirror'] for r in recorded[False]]}), equal to PIL's decode for the same "
+          f"seed: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the batches that reached the step differ from the plain path's decode")
+    out["loader_ms"] = loader_alone(bench.pipeline_config(cfg, paths["root"],
+                                                          paths["pseudo_lst"], TRAIN_HW))
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 # Every kernel wrapper of the package, by name; each counts its own launches.
@@ -690,37 +903,6 @@ def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
     conv2_ab(path, step, state, batches)
     return {"launches": launches, "variants": variants, "wall_ms": wall_ms,
             "parts": parts, "device_ms": device_ms}
-
-
-def profile_steps(step, state, batches, n: int = 3, report: bool = True,
-                  ours=("loss_fwd", "loss_bwd", "conv3x3")) -> float:
-    """Kernel time per step from torch.profiler over ``n`` more steps; with ``report``,
-    prints the kernels that take the most of it and those of this package (names
-    containing ``ours``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            step(state, batches[i % len(batches)])
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)  # keeps the last kernels' records (profile_kernels)
-    # Device-side events, without the annotation spans that enclose kernels.
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
-    total = sum(by_name.values())
-    if not report:
-        return total
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(f"train step kernels (profiler, ms per step, {len(kernels) / n:.0f} launches per "
-          f"step, total {total:.3f}): " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
-    mine = {k: v for k, v in by_name.items() if any(o in k for o in ours)}
-    print("this package's kernels in the step (ms per step): "
-          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in mine.items())
-          + f"; sum {sum(mine.values()):.3f}")
-    return total
 
 
 def phase_loss_kernel_times(launches: dict, worst: dict) -> list:
@@ -1436,6 +1618,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train = phase_train_main_path(tmp)
         torch.cuda.empty_cache()
+        phase_pipeline(tmp, train)
         warm = phase_warmup_main_path()
     torch.cuda.empty_cache()
     bench = phase_bneck_bench()

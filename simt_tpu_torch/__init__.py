@@ -9,8 +9,10 @@ Ported so far: the two-scale Cityscapes evaluation (with the fused
 upsample+argmax+histogram kernel, ``ops/kernels/eval_fused.py``), the SimT train step
 (with the streamed loss core's kernels, ``ops/kernels/loss_fused.py``) and the warmup
 train step, on DeepLabv2-ResNet-101 whose bottleneck 3x3 convs run the port's own
-kernels (``ops/kernels/conv3x3.py``). Entry points run on the card (``device="cuda"``)
-unless the caller asks for the CPU.
+kernels (``ops/kernels/conv3x3.py``); the host input pipeline from list files on disk
+to the card (``data/pipeline.py``, ``train/loop.py::build_loader``) and the bench entry
+(``tools/bench.py``). Entry points run on the card (``device="cuda"``) unless the
+caller asks for the CPU.
 """
 
 from . import config

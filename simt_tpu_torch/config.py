@@ -3,8 +3,8 @@
 The evaluation protocol's constants and the training dataclasses of both stages
 (warmup and SimT) with the named presets of the published runs. All defaults are
 documented against the reference file:line they reproduce. Fields of the JAX package's
-config that nothing in the port reads yet (the model family, the device mesh, the host
-pipeline and the pseudo-label lists) come with the slices that read them.
+config that nothing in the port reads yet (the model family and the device mesh) come
+with the slices that read them.
 """
 
 from __future__ import annotations
@@ -32,12 +32,35 @@ ASSETS_DIR = os.path.join(os.path.dirname(__file__), "data", "assets")
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Training input geometry (reference: dataset/*.py ctor args)."""
+    """Input pipeline configuration (reference: dataset/*.py ctor args); the JAX
+    package's defaults."""
 
+    # Root of the Cityscapes-layout dataset (images under <root>/<relative list paths>).
+    root: str = ""
+    # A .lst file of "image\tlabel" rows (cityscapes_dataset.py:76), or a plain name
+    # list for the gta5 source (gta5_dataset.py:23).
+    list_path: str = os.path.join(ASSETS_DIR, "cityscapes_list", "pseudo_bapa.lst")
     # (width, height), matching INPUT_SIZE_TARGET '1024,512' (trainV2_simt.py:46).
     crop_size: Tuple[int, int] = (1024, 512)
     mean_bgr: Tuple[float, float, float] = IMG_MEAN_BGR
+    # Random horizontal mirror (cityscapes_dataset.py:111-114).
+    mirror: bool = True
+    ignore_label: int = 255
+    num_workers: int = 4
     batch_size: int = 1
+    # Batches in flight to the card (device_prefetch) and the loader's queue depth.
+    prefetch: int = 2
+    # The native C++ preprocessing (data/_native_preproc.py); False decodes with PIL.
+    use_native_preproc: bool = True
+    # Decode in spawned worker processes (the reference's DataLoader model; Pillow
+    # holds the interpreter lock while it decodes, so thread workers scale negatively).
+    process_workers: bool = True
+    # On-disk cache of decoded and resized crops (data/pipeline.py CropCache): epochs
+    # after the first decode no PNG. "" disables it.
+    crop_cache_dir: str = ""
+    # "cityscapes_pseudo" (the trained configuration: image + pseudo-label rows) or
+    # "gta5" (name lists with the GTA5 id remap).
+    source: str = "cityscapes_pseudo"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,13 +135,14 @@ def preset(name: str) -> TrainConfig:
     """Named presets of the published runs (those of ``simt_tpu/config.py``):
 
     - ``warmup_bapa``: sh_warmup.sh stage-1 training (trainV1_warmup.py defaults:
-      closed set, NUM_STEPS_STOP 150 000, :52). Its pseudo-label list comes with the
-      data slice;
+      closed set, NUM_STEPS_STOP 150 000, :52);
     - ``simt_bapa_lr25``: logs/BAPA_SimT_lr25.out (lr 2.5e-4 / lr_T 2.5e-3);
     - ``simt_bapa_lr6``: sh_simt.sh:17 (lr 6e-4 / lr_T 6e-3);
     - ``simt_sfda``: logs/SFDA_SimT.out (lr 2.5e-4 / lr_T 2.5e-3). It differs from
-      ``simt_bapa_lr25`` only in its pseudo-label list, which comes with the data slice;
-      sig_NTM reads ClassDist_bapa.npy in every run (deeplab_multi.py:255).
+      ``simt_bapa_lr25`` only in its pseudo-label list, ``pseudo_sfdaseg.lst``; sig_NTM
+      reads ClassDist_bapa.npy in every run (deeplab_multi.py:255).
+
+    Every other preset trains on ``pseudo_bapa.lst``, ``DataConfig``'s default.
     """
     base = TrainConfig()
     if name == "warmup_bapa":
@@ -128,5 +152,9 @@ def preset(name: str) -> TrainConfig:
     if name not in lrs:
         raise ValueError(f"unknown preset: {name!r}")
     lr, lr_t = lrs[name]
-    return base.replace(
+    cfg = base.replace(
         optim=dataclasses.replace(base.optim, learning_rate=lr, learning_rate_t=lr_t))
+    if name == "simt_sfda":
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, list_path=os.path.join(
+            ASSETS_DIR, "cityscapes_list", "pseudo_sfdaseg.lst")))
+    return cfg

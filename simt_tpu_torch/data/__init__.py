@@ -1,2 +1,3 @@
 from . import lists, pipeline, synthetic
-from .pipeline import Loader, SegDataset, normalize_image
+from .pipeline import (Loader, SegDataset, device_prefetch, normalize_image,
+                       normalize_label)

@@ -41,8 +41,9 @@ def make_cityscapes_fixture(
     rng = np.random.default_rng(seed)
     w, h = image_wh
     info = load_info()
-    # For each train id, the first label id that maps to it.
-    train2label = np.zeros(num_classes, np.uint8)
+    # For each train id of info.json, the first label id that maps to it (a table over
+    # every uint8 id, so that any num_classes works, as the JAX fixture's dict does).
+    train2label = np.zeros(256, np.uint8)
     seen = set()
     for src, dst in info["label2train"]:
         if dst != 255 and dst not in seen:

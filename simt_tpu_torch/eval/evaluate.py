@@ -15,15 +15,16 @@
 Ground-truth ``*_gtFine_labelIds.png`` files are read on the host and remapped through
 ``info.json['label2train']`` (:140-144).
 
-Not in this slice: the JAX package's ``shard=`` (images across processes),
-``mesh=`` (spatially sharded eval) and ``process_workers=`` wait for the parallel
-slice; ``evaluate`` does not take them. The row-sharded head that ``mesh=`` runs is
-ported (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``).
+Not in this slice: the JAX package's ``shard=`` (images across processes) and
+``mesh=`` (spatially sharded eval) wait for the parallel slice; ``evaluate`` does not
+take them. The row-sharded head that ``mesh=`` runs is ported
+(``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Tuple, Union
@@ -111,6 +112,7 @@ def evaluate(
     scales: Tuple[Tuple[int, int], ...] = EVAL_SCALES,
     out_hw: Tuple[int, int] = EVAL_OUT_HW,
     return_hist: bool = False,
+    process_workers: bool = False,
     device: Union[str, torch.device] = "cuda",
 ):
     """Run the full protocol; returns mIoU (percent, 2dp) like evaluate_cityscapes.py:162,
@@ -118,7 +120,10 @@ def evaluate(
 
     ``model`` is moved to ``device`` and put in eval mode. ``device`` defaults to
     ``"cuda"`` and raises without a card; the CPU runs only when asked for, and there
-    the fused kernel's plain version computes the histogram.
+    the fused kernel's plain version computes the histogram. ``process_workers``
+    decodes in spawned processes (``DataConfig.process_workers``): the PNG decode of
+    2048x1024 val images holds the interpreter lock under thread workers, as in
+    training.
     """
     dev = resolve_device(device)
     info = info or load_info()
@@ -131,8 +136,10 @@ def evaluate(
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     loaders = [
-        Loader(SegDataset.cityscapes_eval(data_root, val_list, crop_wh=crop_wh),
-               batch_size, num_workers=4)
+        Loader(SegDataset.cityscapes_eval(data_root, val_list, crop_wh=crop_wh,
+                                          mean_bgr=IMG_MEAN_BGR, split="val"),
+               batch_size, shuffle=False, num_workers=4, drop_last=False, loop=False,
+               process_workers=process_workers)
         for crop_wh in scales
     ]
     predict, predict_hist, hist_update = make_eval_fn(model, num_classes, mode, out_hw)
@@ -151,9 +158,12 @@ def evaluate(
         return gt.astype(np.uint8)  # a quarter of int32's bytes to the card
 
     # Host gt decode overlaps the device work: one batch of decodes stays in flight.
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    streams = [iter(loader) for loader in loaders]
+    with ThreadPoolExecutor(max_workers=4) as pool, contextlib.ExitStack() as stack:
+        for it in streams:  # a loader's iterator stops its workers when closed
+            stack.callback(it.close)
         batches = ((batch, batch_640, [pool.submit(load_gt, n) for n in batch["name"]])
-                   for batch, batch_640 in zip(loaders[0], loaders[1]))
+                   for batch, batch_640 in zip(*streams))
         pending = collections.deque()
         pending.extend(_take(batches, 1))
         while pending:

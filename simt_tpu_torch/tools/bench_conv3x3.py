@@ -139,6 +139,39 @@ def profile_kernels(fn, iters: int, ordered: bool = False):
     return out
 
 
+def profile_steps(step, state, batches, n: int = 3, report: bool = True,
+                  ours=("loss_fwd", "loss_bwd", "conv3x3"), print_fn=print) -> float:
+    """Kernel time per step from torch.profiler over ``n`` more calls of
+    ``step(state, batches[i % len(batches)])``; with ``report``, prints (through
+    ``print_fn``) the kernels that take the most of it and those of this package (names
+    containing ``ours``). ``chip_smoke.py`` and ``tools/bench.py`` time steps with it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)  # keeps the last kernels' records (profile_kernels)
+    # Device-side events, without the annotation spans that enclose kernels.
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    total = sum(by_name.values())
+    if not report:
+        return total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print_fn(f"train step kernels (profiler, ms per step, {len(kernels) / n:.0f} launches "
+             f"per step, total {total:.3f}): "
+             + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    mine = {k: v for k, v in by_name.items() if any(o in k for o in ours)}
+    print_fn("this package's kernels in the step (ms per step): "
+             + "; ".join(f"{k[:60]} {v:.4f}" for k, v in mine.items())
+             + f"; sum {sum(mine.values()):.3f}")
+    return total
+
+
 def kernel_ms(fn, iters: int, word: str | None = KERNEL_WORD) -> float:
     """Device ms per call of ``fn``'s kernels whose name holds ``word`` (all, for None)."""
     return sum(ms for name, (_, ms) in profile_kernels(fn, iters).items()

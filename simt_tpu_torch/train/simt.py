@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data.pipeline import normalize_image
+from ..data.pipeline import normalize_image, normalize_label
 from ..models import ntm as ntm_lib
 from ..ops.fused_losses import simt_loss_block
 from ..ops.losses import mse_sum, volume_loss
@@ -158,7 +158,7 @@ class SimTStep:
             sub = batch if iter_size == 1 else {k: v[i] for k, v in batch.items()}
             image = normalize_image(torch.as_tensor(sub["image"], device=dev),
                                     cfg.data.mean_bgr)
-            label = torch.as_tensor(sub["label"], device=dev)
+            label = normalize_label(torch.as_tensor(sub["label"], device=dev))
             x = image.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
 
             # ------- teacher posterior (:351-354) -------

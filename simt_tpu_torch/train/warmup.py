@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data.pipeline import normalize_image
+from ..data.pipeline import normalize_image, normalize_label
 from ..ops.fused_losses import upsample_ce
 from ..ops.losses import cross_entropy_2d
 from ..ops.schedules import poly_lr
@@ -98,7 +98,7 @@ class WarmupStep:
             sub = batch if iter_size == 1 else {k: v[i] for k, v in batch.items()}
             image = normalize_image(torch.as_tensor(sub["image"], device=dev),
                                     cfg.data.mean_bgr)
-            label = torch.as_tensor(sub["label"], device=dev)
+            label = normalize_label(torch.as_tensor(sub["label"], device=dev))
             with self._span("forward"):
                 l1, l2 = self._losses(st.model, image, label)
                 loss = (l2 + cfg.simt.lambda_seg * l1) / iter_size
