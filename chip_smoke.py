@@ -76,7 +76,20 @@ Phases (any failure exits non-zero before the last line is printed):
      unknown, a 37x301 output from 6x39 logits and a planted anchor tie across blocks
      and images, each run twice and bitwise equal; then their times on the four maps
      with every device operation of a call (``tools/bench_loss_fused.py``'s timing: one
-     each, or the run fails).
+     each, or the run fails);
+  7. the train loop, last (its profiler session and worker processes come after
+     every kernel timing): ``train/loop.py::train`` through its entry points, on the
+     pipeline fixture's 12 train images and 2 of the eval fixture's val images, with
+     every launch count zeroed before and held after each run: the SimT CLI
+     (``tools/train_simt.main``, 4 steps from ``build_loader``, the two-scale
+     evaluation at step 2, the best and last snapshots, a CSV row a step; B1 1 and B4
+     66 an image evaluated, B2/B3/B4/B5 1/1/92/26 a step); a run resumed on the card
+     from its step-2 snapshot against the uninterrupted run (losses and parameters
+     within 1e-3 relative), the best-snapshot keep/delete sequence, a snapshot's save
+     and restore seconds and bytes and its crossing card -> CPU -> card bit for bit;
+     the warmup CLI (3 steps, one single-scale evaluation, its snapshots);
+     ``python -m simt_tpu_torch.tools.train_simt --profile-dir`` over 2 steps in a
+     process of its own, whose trace must name the loss and conv3x3 kernels.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -88,11 +101,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import dataclasses
 import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -131,9 +146,10 @@ from simt_tpu_torch.tools.bench_eval_fused import (head_calls, head_inputs,  # n
 from simt_tpu_torch.tools.bench_loss_fused import (LABEL_MAPS, loss_calls,  # noqa: E402
                                                    loss_inputs, make_maps, step_inputs,
                                                    time_loss)
-from simt_tpu_torch.train import (build_loader, create_simt_state,  # noqa: E402
-                                  create_warmup_state, make_simt_step, make_warmup_step)
-from simt_tpu_torch.utils import format_warmup_line  # noqa: E402
+from simt_tpu_torch.train import (build_loader, checkpoint, create_simt_state,  # noqa: E402
+                                  create_warmup_state, loop, make_simt_step,
+                                  make_warmup_step)
+from simt_tpu_torch.utils import format_simt_line, format_warmup_line  # noqa: E402
 
 eval_module = importlib.import_module("simt_tpu_torch.eval.evaluate")
 SEED = 0
@@ -605,7 +621,7 @@ def simt_main_setup(tmp: str):
     cd = os.path.join(tmp, "cd_uniform.npy")
     np.save(cd, (np.ones(C) / C).astype(np.float32))
     cfg = cfg.replace(simt=dataclasses.replace(cfg.simt, class_dist=cd))
-    student, teacher = train_simt.build_models(cfg)
+    student, teacher = loop.build_models(cfg)
     state = create_simt_state(student, teacher, cfg,
                               torch.Generator().manual_seed(cfg.random_seed + 2), "cuda")
     return cfg, state, make_simt_step(cfg)
@@ -625,7 +641,7 @@ def phase_train_main_path(tmp: str) -> dict:
     # layers 1-2 are frozen in this stage).
     return drive_train_path(
         "SimT", step, state, batches,
-        lambda i, v: train_simt.format_simt_line(i, cfg.num_steps, v)
+        lambda i, v: format_simt_line(i, cfg.num_steps, v)
         + f" loss = {v['loss']:.4f}",
         {"loss_core_fwd": want, "loss_core_bwd": want,
          "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * want,
@@ -808,6 +824,240 @@ def phase_pipeline(tmp: str, resident: dict) -> dict:
     out["loader_ms"] = loader_alone(bench.pipeline_config(cfg, paths["root"],
                                                           paths["pseudo_lst"], TRAIN_HW))
     del state
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# The train loop: the CLIs through train(), evaluation in the loop, snapshots, resume
+# ---------------------------------------------------------------------------------
+
+LOOP_STEPS = 4  # SimT CLI steps (eval at step 2) and the resume comparison's length
+LOOP_VAL = 2  # val images evaluated in the loop
+TOL_RESUME = 1e-3  # resumed vs uninterrupted: losses and parameters, relative
+
+
+def loop_fixture(tmp: str) -> dict:
+    """The pipeline phase's 12 train images and pseudo-labels with the first
+    ``LOOP_VAL`` val images and gt of the main eval path's fixture, all at 2048x1024,
+    joined under one root by symbolic links (nothing is written again)."""
+    root = os.path.join(tmp, "loop")
+    os.makedirs(os.path.join(root, "lists"), exist_ok=True)
+    for sub, src in (("train", "pipeline"), ("pseudo", "pipeline"), ("val", "full"),
+                     ("label", "full")):
+        os.symlink(os.path.join(tmp, src, sub), os.path.join(root, sub))
+    with open(os.path.join(tmp, "full", "lists", "val.txt")) as f:
+        names = [n.strip() for n in f if n.strip()][:LOOP_VAL]
+    val_txt = os.path.join(root, "lists", "val.txt")
+    with open(val_txt, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return {"root": root, "pseudo_lst": os.path.join(tmp, "pipeline", "lists",
+                                                     "pseudo.lst"),
+            "val_txt": val_txt, "gt_dir": os.path.join(root, "label")}
+
+
+def _loop_counts(steps: int, images: int, stage: str = "simt") -> dict:
+    """The launches ``steps`` train steps and an evaluation of ``images`` make."""
+    if stage == "simt":  # two scales an image
+        return {"loss_core_fwd": steps, "loss_core_bwd": steps,
+                "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * steps + 2 * N_CONV2 * images,
+                "conv3x3_wgrad": N_CONV2_L34 * steps, "multiscale_argmax_hist": images}
+    return {"conv3x3_fwd": 2 * N_CONV2 * steps + N_CONV2 * images,  # one scale
+            "conv3x3_wgrad": N_CONV2 * steps, "multiscale_argmax_hist": images}
+
+
+def _snapshots(d: str) -> list:
+    return sorted(n for n in os.listdir(d) if n.startswith("step_"))
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+def _state_tensors(st) -> dict:
+    out = {f"model.{k}": v for k, v in st.model.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    out.update({k: getattr(st, k).param.detach() for k in ("t1", "t2", "w1", "w2")})
+    return out
+
+
+def phase_train_loop(tmp: str, smi: str, resident: dict) -> dict:
+    """``train()`` at full width through its entry points: the SimT CLI from PNGs on
+    disk with the two-scale evaluation at step 2, the best and last snapshots and the
+    CSV; the resume on the card against the uninterrupted run, snapshot save/restore
+    times and bytes, a snapshot crossing between the card and the CPU, the
+    keep/delete sequence; the warmup CLI; ``--profile-dir``."""
+    paths = loop_fixture(tmp)
+    data = ["--data-dir-target", paths["root"], "--data-list-target", paths["pseudo_lst"],
+            "--gt-dir", paths["gt_dir"], "--val-list", paths["val_txt"], "--log-every", "1"]
+    out = {}
+
+    # 1. The SimT CLI in this process (4 process workers, native preprocessing).
+    snaps, csv_path = os.path.join(tmp, "loop_snaps"), os.path.join(tmp, "loop.csv")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = train_simt.main(data + [
+        "--preset", "simt_bapa_lr25", "--num-steps-stop", str(LOOP_STEPS),
+        "--save-pred-every", "2", "--snapshot-dir", snaps, "--csv", csv_path])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(csv_path) as f:
+        rows = f.read().strip().splitlines()[1:]
+    print(f"train loop, train_simt CLI ({LOOP_STEPS} steps from build_loader, eval at step "
+          f"2 over {LOOP_VAL} 2048x1024 images on the two-scale protocol): {cli_s:.1f} s "
+          f"with set-up; StepTimer {summary['steps_per_sec']:.3f} steps/s (eval and "
+          f"snapshot inside; resident step {1e3 / resident['wall_ms']:.3f} steps/s); "
+          f"in-loop eval {summary['eval_seconds']} s; best mIoU {summary['best_miou']} at "
+          f"step {summary['best_step']}; snapshots {_snapshots(snaps)}; CSV rows "
+          f"{len(rows)}; peak device memory {peak:.2f} GiB [{smi}]")
+    check_counts("train loop (CLI)", launches, _loop_counts(LOOP_STEPS, LOOP_VAL))
+    eval_b4 = 2 * N_CONV2 * LOOP_VAL  # held by check_counts above
+    print(f"train loop launches a step: {launches['loss_core_fwd'] / LOOP_STEPS:.0f} B2, "
+          f"{launches['loss_core_bwd'] / LOOP_STEPS:.0f} B3, "
+          f"{(launches['conv3x3_fwd'] - eval_b4) / LOOP_STEPS:.0f} B4, "
+          f"{launches['conv3x3_wgrad'] / LOOP_STEPS:.0f} B5; an image evaluated: B1 "
+          f"{launches['multiscale_argmax_hist'] / LOOP_VAL:.0f}, B4 "
+          f"{eval_b4 / LOOP_VAL:.0f}")
+    if (summary["best_step"] != 2 or not math.isfinite(summary["best_miou"])
+            or len(summary["eval_seconds"]) != 1
+            or _snapshots(snaps) != ["step_00000002", f"step_{LOOP_STEPS:08d}"]
+            or len(rows) != LOOP_STEPS
+            or not all(math.isfinite(v) for v in summary["final_metrics"].values())):
+        fail(f"train loop (CLI): summary {summary['best_step']}/{summary['best_miou']}/"
+             f"{summary['eval_seconds']}, snapshots {_snapshots(snaps)}, {len(rows)} rows")
+    out.update(cli_steps_per_sec=summary["steps_per_sec"], eval_s=summary["eval_seconds"][0],
+               peak_gib=peak, launches=launches)
+    del summary
+    shutil.rmtree(snaps)
+
+    # 2. Resume on the card, from a resident batch repeated every step.
+    cfg = train_simt.build_config(train_simt.build_parser().parse_args(
+        ["--preset", "simt_bapa_lr25", "--log-every", "1"]))
+    batch = train_simt.synthetic_batches(cfg, 1, torch.device("cuda"))[0]
+
+    def repeat():
+        while True:
+            yield batch
+
+    scores = iter(range(1, 100))
+    a_dir, b_dir = os.path.join(tmp, "loop_a"), os.path.join(tmp, "loop_b")
+    quiet = lambda s: None  # noqa: E731
+    whole = loop.train(cfg.replace(num_steps_stop=LOOP_STEPS, snapshot_dir=a_dir,
+                                   save_pred_every=1),
+                       batch_iter=repeat(), eval_fn=lambda m: float(next(scores)),
+                       csv_path=os.path.join(tmp, "a.csv"), print_fn=quiet)
+    keep = _snapshots(a_dir)
+    loop.train(cfg.replace(num_steps_stop=LOOP_STEPS, snapshot_dir=b_dir),
+               batch_iter=repeat(), max_steps=2, print_fn=quiet)
+    reset_counts()
+    resumed = loop.train(cfg.replace(num_steps_stop=LOOP_STEPS, snapshot_dir=b_dir),
+                         batch_iter=repeat(), resume=True,
+                         csv_path=os.path.join(tmp, "b.csv"), print_fn=quiet)
+    resume_launches = read_counts()
+    check_counts("train loop (resumed)", resume_launches, _loop_counts(2, 0))
+    loss_err = 0.0
+    with open(os.path.join(tmp, "a.csv")) as fa, open(os.path.join(tmp, "b.csv")) as fb:
+        ra, rb = list(csv.DictReader(fa))[2:], list(csv.DictReader(fb))
+    ok = [r["step"] for r in ra] == [r["step"] for r in rb] == ["2", "3"]
+    for x, y in zip(rb, ra):
+        for k in ("loss", "loss_seg_p", "loss_seg_y", "convex", "volume", "anchor",
+                  "place"):
+            loss_err = max(loss_err, abs(float(x[k]) - float(y[k]))
+                           / max(abs(float(y[k])), 1e-30))
+    want, got = _state_tensors(whole["state"]), _state_tensors(resumed["state"])
+    param_err = max(_rel_err(got[k], v) for k, v in want.items())
+    ok = (ok and loss_err <= TOL_RESUME and param_err <= TOL_RESUME
+          and resumed["state"].step == LOOP_STEPS
+          and keep == [f"step_{LOOP_STEPS - 1:08d}", f"step_{LOOP_STEPS:08d}"])
+    print(f"train loop resume on the card: steps 2-3 resumed from the step-2 snapshot vs "
+          f"uninterrupted: losses within {loss_err:.3e}, parameters within {param_err:.3e} "
+          f"relative (limit {TOL_RESUME:g}); keep/delete with scores rising each step "
+          f"leaves {keep}; StepTimer {resumed['steps_per_sec']:.3f} steps/s over the 2 "
+          f"resumed steps (resident step {1e3 / resident['wall_ms']:.3f} steps/s) "
+          f"[{smi}]: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("train loop: the resumed run differs from the uninterrupted one")
+
+    # Snapshot save / restore times and bytes; the snapshot across card and CPU.
+    st = resumed["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(st, os.path.join(tmp, "loop_c"), 7)
+    save_s = time.perf_counter() - t0
+    nbytes = checkpoint.snapshot_bytes(os.path.join(tmp, "loop_c"), 7)
+    fresh = create_simt_state(*loop.build_models(cfg), cfg, torch.Generator().manual_seed(9),
+                              "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore(fresh, os.path.join(tmp, "loop_c"))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    on_card = _state_tensors(st)
+    cpu = create_simt_state(*loop.build_models(cfg), cfg, torch.Generator().manual_seed(9),
+                            "cpu")
+    checkpoint.restore(cpu, os.path.join(tmp, "loop_c"))
+    checkpoint.save(cpu, os.path.join(tmp, "loop_d"), 7)
+    checkpoint.restore(fresh, os.path.join(tmp, "loop_d"))
+    crossed = all(torch.equal(_state_tensors(cpu)[k], v.cpu())
+                  and torch.equal(_state_tensors(fresh)[k], v) for k, v in on_card.items())
+    print(f"train loop snapshot: save {save_s:.3f} s, {nbytes} bytes "
+          f"({nbytes / 2**30:.3f} GiB); restore {restore_s:.3f} s; card -> CPU -> card "
+          f"equal bit for bit: {'yes' if crossed else 'NO'} [{smi}]")
+    if not crossed:
+        fail("train loop: a snapshot did not cross between the card and the CPU intact")
+    out.update(save_s=save_s, snapshot_bytes=nbytes, restore_s=restore_s,
+               loop_steps_per_sec=resumed["steps_per_sec"], resume_loss_err=loss_err,
+               resume_param_err=param_err)
+    del whole, resumed, st, fresh, cpu, on_card, want, got
+    for d in (a_dir, b_dir, os.path.join(tmp, "loop_c"), os.path.join(tmp, "loop_d")):
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+    # 3. The warmup CLI: 3 steps, one evaluation (single scale), its snapshots.
+    w_snaps = os.path.join(tmp, "loop_w")
+    reset_counts()
+    summary = train_warmup.main(data + ["--num-steps-stop", "3", "--save-pred-every", "2",
+                                        "--snapshot-dir", w_snaps])
+    launches = read_counts()
+    print(f"train loop, train_warmup CLI (3 steps, eval at step 2): StepTimer "
+          f"{summary['steps_per_sec']:.3f} steps/s, in-loop eval {summary['eval_seconds']} "
+          f"s, best mIoU {summary['best_miou']}, snapshots {_snapshots(w_snaps)} [{smi}]")
+    check_counts("train loop (warmup CLI)", launches, _loop_counts(3, LOOP_VAL, "warmup"))
+    if (_snapshots(w_snaps) != ["step_00000002", "step_00000003"]
+            or not math.isfinite(summary["best_miou"])):
+        fail(f"train loop (warmup CLI): snapshots {_snapshots(w_snaps)}, mIoU "
+             f"{summary['best_miou']}")
+    del summary
+    shutil.rmtree(w_snaps)
+    torch.cuda.empty_cache()
+
+    # 4. --profile-dir over 2 steps, the CLI in a process of its own as a user runs it:
+    # after the loader workers of the runs above (spawned processes that import torch)
+    # have exited, this process's profiler can record no CUDA activity at all
+    # (tools/profiler_probe.py --torch-children).
+    prof = os.path.join(tmp, "loop_prof")
+    res = subprocess.run(
+        [sys.executable, "-m", "simt_tpu_torch.tools.train_simt", "--data-dir-target",
+         paths["root"], "--data-list-target", paths["pseudo_lst"], "--num-steps-stop", "2",
+         "--snapshot-dir", "", "--profile-dir", prof],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    if res.returncode:
+        fail(f"train loop --profile-dir: the CLI exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    named = {w: trace.count(w) for w in (KERNEL_WORD, "loss_fwd_kernel", "loss_bwd_kernel")}
+    print(f"train loop --profile-dir: trace.json {len(trace)} bytes, kernel name counts "
+          f"{named}")
+    if not all(named.values()):
+        fail(f"train loop: the profiler trace lacks the package's kernels: {named}")
     torch.cuda.empty_cache()
     return out
 
@@ -1118,7 +1368,7 @@ def warmup_vs_plain_conv(cfg, batches) -> None:
     same weights with conv2 on the plain taps (float32 sums, autograd backward): the
     losses within 2e-2 relative (bf16 activations: each conv2 output may round one
     bf16 ulp apart, 2**-7, and the steps feed that back)."""
-    base = train_warmup.build_model(cfg)
+    base = loop.build_models(cfg)[0]
     losses = {}
     for mode in ("kernels", "plain"):
         st = create_warmup_state(copy.deepcopy(base), cfg, "cuda")
@@ -1194,7 +1444,7 @@ def phase_warmup_main_path() -> dict:
         ["--synthetic", "--num-steps-stop", str(2 + TIMED_STEPS)])
     cfg = train_warmup.build_config(args)
     t0 = time.perf_counter()
-    state = create_warmup_state(train_warmup.build_model(cfg), cfg, "cuda")
+    state = create_warmup_state(loop.build_models(cfg)[0], cfg, "cuda")
     batches = train_simt.synthetic_batches(cfg, cfg.num_steps_stop, torch.device("cuda"))
     step = make_warmup_step(cfg)
     torch.cuda.synchronize()
@@ -1620,19 +1870,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_pipeline(tmp, train)
         warm = phase_warmup_main_path()
-    torch.cuda.empty_cache()
-    bench = phase_bneck_bench()
-    entry = phase_kernel_times(launches, worst)
-    device_ms = sum(forward_ms) + entry["kernel_ms"]
-    print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
-          f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
-          f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
-    paths = {"warmup": warm["launches"], "simt": train["launches"], "eval": launches}
-    variants = {"warmup": warm["variants"], "simt": train["variants"], "eval": eval_variants}
-    conv_entries = phase_conv_times(paths, variants, conv_worst)
-    bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
-    loss_worst = phase_loss_kernels_vs_plain(rng)
-    loss_entries = phase_loss_kernel_times(train["launches"], loss_worst)
+        torch.cuda.empty_cache()
+        bench = phase_bneck_bench()
+        entry = phase_kernel_times(launches, worst)
+        device_ms = sum(forward_ms) + entry["kernel_ms"]
+        print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
+              f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
+              f"(estimate): {device_ms * N_IMAGES / (seconds * 1e3):.3f}")
+        paths = {"warmup": warm["launches"], "simt": train["launches"], "eval": launches}
+        variants = {"warmup": warm["variants"], "simt": train["variants"],
+                    "eval": eval_variants}
+        conv_entries = phase_conv_times(paths, variants, conv_worst)
+        bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
+        loss_worst = phase_loss_kernels_vs_plain(rng)
+        loss_entries = phase_loss_kernel_times(train["launches"], loss_worst)
+        # The train loop last, on the fixtures of the eval and pipeline phases: its
+        # profiler session (--profile-dir) and its worker processes come after every
+        # kernel timing of the phases above.
+        phase_train_loop(tmp, smi, train)
 
     print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries, *bneck_entries]}))
     print(smi)

@@ -11,8 +11,12 @@ upsample+argmax+histogram kernel, ``ops/kernels/eval_fused.py``), the SimT train
 train step, on DeepLabv2-ResNet-101 whose bottleneck 3x3 convs run the port's own
 kernels (``ops/kernels/conv3x3.py``); the host input pipeline from list files on disk
 to the card (``data/pipeline.py``, ``train/loop.py::build_loader``) and the bench entry
-(``tools/bench.py``). Entry points run on the card (``device="cuda"``) unless the
-caller asks for the CPU.
+(``tools/bench.py``); the training loop with evaluation in the loop, full-state
+snapshots and resume (``train/loop.py::train``, ``train/checkpoint.py``), the CLIs on
+their shared flags (``tools/common.py``: ``train_simt``, ``train_warmup``, ``test``)
+and the offline tools (``compute_iou``, ``compute_class_distribution``,
+``compute_confusion_matrix``, ``export_torch``). Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU.
 """
 
 from . import config

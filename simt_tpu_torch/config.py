@@ -2,9 +2,9 @@
 
 The evaluation protocol's constants and the training dataclasses of both stages
 (warmup and SimT) with the named presets of the published runs. All defaults are
-documented against the reference file:line they reproduce. Fields of the JAX package's
-config that nothing in the port reads yet (the model family and the device mesh) come
-with the slices that read them.
+documented against the reference file:line they reproduce. The JAX package's other
+model families (``ModelConfig.arch``), their ASPP variants and the device mesh come
+with ROADMAP A-5 and A-4: a config that asks for them raises.
 """
 
 from __future__ import annotations
@@ -67,11 +67,29 @@ class DataConfig:
 class ModelConfig:
     """The DeepLabv2-ResNet-101 heads (reference: model/deeplab_multi.py)."""
 
+    # The model family. The port builds "deeplab_multi" only; the JAX package's
+    # deeplab_single, deeplab_vgg and deeplabv3 come with ROADMAP A-5.
+    arch: str = "deeplab_multi"
     num_classes: int = NUM_CLASSES  # NUM_CLASSES, trainV2_simt.py:50
     open_classes: int = OPEN_CLASSES  # sh_simt.sh:17 (module default 15, :51)
+    # The open-set heads (layer5_1/layer6_1). The SimT stage's student has them
+    # whatever this says, as in the JAX package; the presets set it per stage.
+    openset: bool = False
     # "bfloat16": convolutions under bf16 autocast, float32 parameters and head sums;
     # "float32": everything in float32.
     compute_dtype: str = "bfloat16"
+    # The ASPP branches the heads sum: 2 is the reference quirk (a return inside the
+    # loop, deeplab_multi.py:115-119). Res_Deeplab's 4 comes with ROADMAP A-5.
+    aspp_effective_branches: int = 2
+
+    def __post_init__(self):
+        if self.arch != "deeplab_multi":
+            raise ValueError(f"arch {self.arch!r}: the port builds 'deeplab_multi' only; "
+                             "the other model families come with ROADMAP A-5")
+        if self.aspp_effective_branches != 2:
+            raise ValueError(
+                f"aspp_effective_branches={self.aspp_effective_branches}: the port's "
+                "heads sum the reference's 2 branches; other counts come with ROADMAP A-5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +122,9 @@ class SimTConfig:
     # Class-distribution prior for sig_NTM (deeplab_multi.py:255): a name under
     # data/assets/class_dist or a .npy path.
     class_dist: str = "bapa"
+    # Cache the frozen teacher's posterior (the JAX package's opt-in
+    # train/teacher_cache.py); comes with ROADMAP A-5, ``train()`` raises when set.
+    cache_teacher: bool = False
     # Output-row chunk of the plain (CPU) loss core; the math is chunk-invariant.
     loss_chunk_rows: int = 64
     # False (reference-verbatim): the inner W loop's T-gradients of MSE(W@T, 0) stay in
@@ -122,10 +143,15 @@ class TrainConfig:
     simt: SimTConfig = dataclasses.field(default_factory=SimTConfig)
 
     num_steps: int = 250_000  # NUM_STEPS trainV2_simt.py:52
-    num_steps_stop: int = 40_000  # NUM_STEPS_STOP :53
+    num_steps_stop: int = 40_000  # NUM_STEPS_STOP :53 (warmup uses 150k, trainV1:52)
+    save_pred_every: int = 1_000  # SAVE_PRED_EVERY :57
+    log_every: int = 100  # print cadence trainV2_simt.py:438
     random_seed: int = 1234  # RANDOM_SEED :55
+    snapshot_dir: str = "snapshots"
     restore_from: str = ""
     ignore_label: int = 255
+    # Stage: "warmup" or "simt".
+    stage: str = "simt"
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -135,24 +161,27 @@ def preset(name: str) -> TrainConfig:
     """Named presets of the published runs (those of ``simt_tpu/config.py``):
 
     - ``warmup_bapa``: sh_warmup.sh stage-1 training (trainV1_warmup.py defaults:
-      closed set, NUM_STEPS_STOP 150 000, :52);
+      the warmup stage, closed set, NUM_STEPS_STOP 150 000, :52);
     - ``simt_bapa_lr25``: logs/BAPA_SimT_lr25.out (lr 2.5e-4 / lr_T 2.5e-3);
     - ``simt_bapa_lr6``: sh_simt.sh:17 (lr 6e-4 / lr_T 6e-3);
     - ``simt_sfda``: logs/SFDA_SimT.out (lr 2.5e-4 / lr_T 2.5e-3). It differs from
       ``simt_bapa_lr25`` only in its pseudo-label list, ``pseudo_sfdaseg.lst``; sig_NTM
       reads ClassDist_bapa.npy in every run (deeplab_multi.py:255).
 
-    Every other preset trains on ``pseudo_bapa.lst``, ``DataConfig``'s default.
+    The SimT presets set ``stage="simt"`` and ``openset=True``. Every other preset
+    trains on ``pseudo_bapa.lst``, ``DataConfig``'s default.
     """
     base = TrainConfig()
     if name == "warmup_bapa":
-        return base.replace(num_steps_stop=150_000)
+        return base.replace(stage="warmup", num_steps_stop=150_000,
+                            model=ModelConfig(openset=False))
     lrs = {"simt_bapa_lr25": (2.5e-4, 2.5e-3), "simt_bapa_lr6": (6e-4, 6e-3),
            "simt_sfda": (2.5e-4, 2.5e-3)}
     if name not in lrs:
         raise ValueError(f"unknown preset: {name!r}")
     lr, lr_t = lrs[name]
     cfg = base.replace(
+        stage="simt", model=ModelConfig(openset=True),
         optim=dataclasses.replace(base.optim, learning_rate=lr, learning_rate_t=lr_t))
     if name == "simt_sfda":
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, list_path=os.path.join(

@@ -201,8 +201,30 @@ def _take(iterator, n: int):
     return [item for _, item in zip(range(n), iterator)]
 
 
-def save_pred_png(pred: np.ndarray, path: str) -> None:
-    """Prediction map as an 8-bit train-id PNG (evaluate_cityscapes.py:150-155)."""
+# Cityscapes palette (evaluate_cityscapes.py:40-45).
+PALETTE = [
+    128, 64, 128, 244, 35, 232, 70, 70, 70, 102, 102, 156, 190, 153, 153, 153, 153, 153,
+    250, 170, 30, 220, 220, 0, 107, 142, 35, 152, 251, 152, 70, 130, 180, 220, 20, 60,
+    255, 0, 0, 0, 0, 142, 0, 0, 70, 0, 60, 100, 0, 80, 100, 0, 0, 230, 119, 11, 32,
+    255, 255, 255,
+]
+
+
+def colorize_mask(mask: np.ndarray):
+    """Train-id map as a palette PIL image (evaluate_cityscapes.py:48-53)."""
     from PIL import Image
 
-    Image.fromarray(pred.astype(np.uint8)).save(path)
+    img = Image.fromarray(mask.astype(np.uint8)).convert("P")
+    img.putpalette(PALETTE + [0] * (768 - len(PALETTE)))
+    return img
+
+
+def save_pred_png(pred: np.ndarray, path: str, color: bool = False) -> None:
+    """Prediction map as an 8-bit train-id PNG (evaluate_cityscapes.py:150-155), or
+    with ``color`` as the palette image of ``colorize_mask``."""
+    from PIL import Image
+
+    if color:
+        colorize_mask(pred).save(path)
+    else:
+        Image.fromarray(pred.astype(np.uint8)).save(path)

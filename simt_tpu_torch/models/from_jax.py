@@ -1,4 +1,5 @@
-"""Weights carried across: the JAX variables tree or a reference ``.pth`` -> the port.
+"""Weights and train states carried across: the JAX variables tree, a JAX train state
+(optimizer moments included) or a reference ``.pth`` -> the port.
 
 ``state_dict_from_flax`` maps the JAX package's ``{"params", "batch_stats"}`` tree (as
 numpy arrays) onto the reference key layout the port's modules use. It is the port's
@@ -129,16 +130,42 @@ def _variables(params, stats) -> "OrderedDict[str, torch.Tensor]":
     return state_dict_from_flax({"params": _as_f32(params), "batch_stats": _as_f32(stats)})
 
 
+def _momentum(opt_state) -> Dict[str, torch.Tensor]:
+    """The SGD momentum of a JAX model state, by the port's parameter name. The JAX
+    optimizer is ``chain(add_decayed_weights, trace)`` over the trainable leaves only,
+    its ``trace`` keyed by the flat parameter path (simt_tpu/train/state.py:116-170);
+    optax's ``trace`` is torch SGD's ``momentum_buffer`` (buf = m * buf + g + wd * p)."""
+    out = {}
+    for path, val in opt_state[1].trace.items():
+        key, transpose = torch_key(("params",) + tuple(path))
+        arr = np.asarray(val, np.float32)
+        if transpose and arr.ndim == 4:
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        out[key] = torch.from_numpy(np.array(arr, order="C"))
+    return out
+
+
+def _adam(opt_state) -> dict:
+    """optax ``scale_by_adam``'s (count, mu, nu) as torch Adam's per-parameter state
+    (step, exp_avg, exp_avg_sq)."""
+    return {"step": int(np.asarray(opt_state.count)),
+            "exp_avg": torch.from_numpy(np.array(opt_state.mu, np.float32)),
+            "exp_avg_sq": torch.from_numpy(np.array(opt_state.nu, np.float32))}
+
+
 def warmup_state_from_jax(state) -> dict:
     """The port's pieces of a JAX ``WarmupState`` (``simt_tpu/train/state.py``) whose
-    leaves are numpy arrays: ``model``, a state_dict of the params and batch statistics,
-    and ``step``, the step as an int.
-
-    The SGD momentum is not carried: at step 0 it is zero, which is what
-    ``train.warmup.create_warmup_state`` starts from.
+    leaves are numpy arrays: ``model``, a state_dict of the params and batch statistics;
+    ``momentum``, the SGD momentum by parameter name (trainable parameters only); and
+    ``step``, the step as an int. ``load_state`` puts them into a port state, so a JAX
+    run resumes in the port.
     """
     return {"model": _variables(state.model.params, state.model.batch_stats),
+            "momentum": _momentum(state.model.opt_state),
             "step": int(np.asarray(state.step))}
+
+
+_NTM = ("t1", "t2", "w1", "w2")
 
 
 def simt_state_from_jax(state) -> dict:
@@ -147,17 +174,46 @@ def simt_state_from_jax(state) -> dict:
 
       - ``student`` / ``teacher``: state_dicts (params and batch statistics; a
         bfloat16-stored teacher kernel comes back as float32);
-      - ``t1``, ``t2``, ``w1``, ``w2``: float32 tensors of the NTM / W parameters;
+      - ``momentum``: the student's SGD momentum by parameter name;
+      - ``t1``, ``t2``, ``w1``, ``w2``: float32 tensors of the NTM / W parameters, and
+        ``adam``: their Adam states (``{"t1": {"step", "exp_avg", "exp_avg_sq"}, ...}``);
       - ``step``: the outer step as an int.
 
-    The optimizer moments are not carried: at step 0 they are zeros, which is what
-    ``train.simt.create_simt_state`` starts from.
+    ``load_state`` puts them into a port state, so a JAX run resumes in the port.
     """
     ntm = {k: torch.from_numpy(np.array(getattr(state, k).param, np.float32))
-           for k in ("t1", "t2", "w1", "w2")}
+           for k in _NTM}
     return {
         "student": _variables(state.model.params, state.model.batch_stats),
         "teacher": _variables(state.teacher_params, state.teacher_batch_stats),
+        "momentum": _momentum(state.model.opt_state),
         **ntm,
+        "adam": {k: _adam(getattr(state, k).opt_state) for k in _NTM},
         "step": int(np.asarray(state.step)),
     }
+
+
+def load_state(state, carried: Mapping) -> None:
+    """Load what ``simt_state_from_jax`` or ``warmup_state_from_jax`` returned into a
+    port ``SimTState`` or ``WarmupState`` built for the same configuration, in place:
+    the weights (strict), each SGD momentum buffer and each Adam state on its
+    parameter's device (in its memory format), the NTM/W parameters and ``step``."""
+    simt = "student" in carried
+    state.model.load_state_dict(carried["student" if simt else "model"], strict=True)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for group in state.model_opt.param_groups:
+        for p in group["params"]:
+            buf = carried["momentum"][names[id(p)]]
+            state.model_opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
+    if simt:
+        state.teacher.load_state_dict(carried["teacher"], strict=True)
+        for k in _NTM:
+            ntm = getattr(state, k)
+            adam = carried["adam"][k]
+            with torch.no_grad():
+                ntm.param.copy_(carried[k])
+            ntm.opt.state[ntm.param] = {
+                "step": torch.tensor(float(adam["step"]), dtype=torch.float32),
+                "exp_avg": torch.empty_like(ntm.param).copy_(adam["exp_avg"]),
+                "exp_avg_sq": torch.empty_like(ntm.param).copy_(adam["exp_avg_sq"])}
+    state.step = carried["step"]

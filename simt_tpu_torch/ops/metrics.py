@@ -27,6 +27,15 @@ def fast_hist(label: torch.Tensor, pred: torch.Tensor, num_classes: int) -> torc
     return hist.reshape(num_classes, num_classes).to(torch.int32)
 
 
+def fast_hist_np(label: np.ndarray, pred: np.ndarray, num_classes: int) -> np.ndarray:
+    """Host-side twin of :func:`fast_hist` on numpy arrays (compute_iou.py:9-11), for
+    the offline tools."""
+    k = (label >= 0) & (label < num_classes)
+    return np.bincount(
+        num_classes * label[k].astype(int) + pred[k], minlength=num_classes**2
+    ).reshape(num_classes, num_classes)
+
+
 def per_class_iu(hist) -> np.ndarray:
     """Per-class IoU = diag / (row + col - diag) (compute_iou.py:14-15). NaN for absent."""
     if isinstance(hist, torch.Tensor):

@@ -173,9 +173,20 @@ def profile_steps(step, state, batches, n: int = 3, report: bool = True,
 
 
 def kernel_ms(fn, iters: int, word: str | None = KERNEL_WORD) -> float:
-    """Device ms per call of ``fn``'s kernels whose name holds ``word`` (all, for None)."""
-    return sum(ms for name, (_, ms) in profile_kernels(fn, iters).items()
-               if word is None or word in name) / iters
+    """Device ms per call of ``fn``'s kernels whose name holds ``word`` (all, for None).
+    A reading with no such launch, or with a count that is no whole multiple of
+    ``iters`` (the profiler dropped a record), is taken again, up to PROFILE_READINGS
+    readings; raises if none has one."""
+    for _ in range(PROFILE_READINGS):
+        got = [(n, ms) for name, (n, ms) in profile_kernels(fn, iters).items()
+               if word is None or word in name]
+        launches = sum(n for n, _ in got)
+        if launches and launches % iters == 0:
+            break
+    if not launches:
+        raise RuntimeError(f"no {word or 'device'} kernel in {PROFILE_READINGS} profiler "
+                           "readings")
+    return sum(ms for _, ms in got) / iters
 
 
 def host_us(fn, iters: int = 200) -> float:

@@ -104,7 +104,7 @@ def test_warmup_cli_restores_a_prefixed_checkpoint(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "(missing 0, skipped 0)" in out and f"loaded {len(sd)} tensors" in out, out
     assert len(sd) > 500
-    assert np.isfinite(float(res["metrics"]["loss_seg1"]))
+    assert np.isfinite(res["final_metrics"]["loss_seg1"])
 
 
 @pytest.mark.parametrize("prefix", ["Scale.", "Model."])
