@@ -67,7 +67,8 @@ Phases (any failure exits non-zero before the last line is printed):
      and waves chosen and the host cost a call (``tools/bench_conv3x3.py``'s timing);
      B6/B7 at the four trunk geometries by the same two clocks with their launches a
      call (7 and 12, or the run fails) and, at layer3, each launch's device time in
-     launch order (``tools/bench_fused_bottleneck.py``'s ``time_bneck``);
+     launch order (``tools/bench_fused_bottleneck.py``'s ``time_bneck``); B1 at
+     DeepLabv3's eval shapes (batch 4) with its bound by bytes;
   6. the loss core's forward and backward (B2/B3) against their plain versions at the
      train path's shapes (xcat 1x65x129x68 -> 512x1024, C 19 + O 15; batch 1, 2 and 16)
      on four label maps (iid per pixel, constant over 16x16 cells on a grid aligned to
@@ -77,7 +78,26 @@ Phases (any failure exits non-zero before the last line is printed):
      and images, each run twice and bitwise equal; then their times on the four maps
      with every device operation of a call (``tools/bench_loss_fused.py``'s timing: one
      each, or the run fails);
-  7. the train loop, last (its profiler session and worker processes come after
+  7. the auxiliary models and stages, after every profiler reading (a run with their
+     checks before the eval main path read no B1 launch there): B1 at their eval
+     paths' shapes with uint8 gt (DeepLab-VGG's 64x128 + 80x160 logits, DeepLabv3's
+     full-resolution 512x1024 + 640x1280 at batch 1 and 4) against its plain version
+     and bit for bit against its own arithmetic, run twice; float32 on the card against
+     the CPU at small size, the forward and three warmup steps of Res_Deeplab (layers
+     (1,1,1,1)), DeepLab-VGG and DeepLabv3 at 64x128 and three adversarial warmup steps,
+     and three SimT steps fed from the teacher cache against three uncached ones; at
+     full width (``tools/test.py --model``, ``tools/train_warmup.py --model /
+     --adversarial``) the two-scale evaluation over the 4 images of Res_Deeplab,
+     DeepLab-VGG and DeepLabv3 (batch 4), one B1 a batch and Res_Deeplab's B4 66 an
+     image; the warmup step of each (Res_Deeplab B4/B5 66/33 a step, VGG and DeepLabv3
+     none) and the adversarial warmup step (DeepLabv2 + FCDiscriminator, B4/B5 66/33), 2
+     warm-up and 3 timed steps with their CUDA-event spans; then, with worker
+     processes, the SimT step fed from the teacher cache (``build_loader`` over the
+     12-image fixture wrapped by ``TeacherCache``): a pass of misses, then turns of 5
+     steps cached, uncached, uncached, cached, a hit step's launches B2/B3/B4/B5
+     1/1/59/26; ``tools/bench.py --pipeline --cache-teacher`` in a process of its own,
+     its JSON line;
+  8. the train loop, last (its profiler session and worker processes come after
      every kernel timing): ``train/loop.py::train`` through its entry points, on the
      pipeline fixture's 12 train images and 2 of the eval fixture's val images, with
      every launch count zeroed before and held after each run: the SimT CLI
@@ -126,17 +146,19 @@ from simt_tpu_torch.config import (ModelConfig, OptimConfig, SimTConfig,  # noqa
 from simt_tpu_torch.data import device_prefetch, pipeline  # noqa: E402
 from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_batch  # noqa: E402
 from simt_tpu_torch.eval import evaluate  # noqa: E402
-from simt_tpu_torch.models import ResNetMulti, deeplab_multi, init_weights  # noqa: E402
-from simt_tpu_torch.models import layers  # noqa: E402
+from simt_tpu_torch.models import (DeeplabSingle, DeeplabVGG, DeepLabv3,  # noqa: E402
+                                   FCDiscriminator, ResNetMulti, deeplab_multi,
+                                   init_weights, layers)
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
-from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, train_simt,  # noqa: E402
-                                  train_warmup)
+from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
+                                  train_simt, train_warmup)
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
                                                 checked_launches, conv_calls, cuda_ms,
+                                                kernel_events, prime_session,
                                                 profile_kernels, profile_steps,
                                                 time_conv, time_launches)
 from simt_tpu_torch.tools.bench_eval_fused import KERNEL_WORD as HEAD_WORD  # noqa: E402
@@ -149,6 +171,9 @@ from simt_tpu_torch.tools.bench_loss_fused import (LABEL_MAPS, loss_calls,  # no
 from simt_tpu_torch.train import (build_loader, checkpoint, create_simt_state,  # noqa: E402
                                   create_warmup_state, loop, make_simt_step,
                                   make_warmup_step)
+from simt_tpu_torch.train.adversarial import (create_discriminator_state,  # noqa: E402
+                                              make_adversarial_warmup_step)
+from simt_tpu_torch.train.teacher_cache import TeacherCache  # noqa: E402
 from simt_tpu_torch.utils import format_simt_line, format_warmup_line  # noqa: E402
 
 eval_module = importlib.import_module("simt_tpu_torch.eval.evaluate")
@@ -1062,6 +1087,480 @@ def phase_train_loop(tmp: str, smi: str, resident: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------------
+# The auxiliary models and stages: Res_Deeplab, DeepLab-VGG, DeepLabv3, the
+# adversarial warmup and the teacher-posterior cache
+# ---------------------------------------------------------------------------------
+
+AUX_ARCHS = ("deeplab_single", "deeplab_vgg", "deeplabv3")
+# The logits B1 takes on each family's eval path: VGG's stride-8 maps (floor-mode pools)
+# and DeepLabv3's maps at the input's size, of the 512x1024 and 640x1280 inputs.
+AUX_HEAD_HW = {"deeplab_vgg": ((64, 128), (80, 160)),
+               "deeplabv3": ((512, 1024), (640, 1280))}
+AUX_EVAL_BATCH = {"deeplab_single": 1, "deeplab_vgg": 1, "deeplabv3": 4}  # v3: BASELINE's
+AUX_TIMED = 3  # timed steps of each auxiliary train path, after 2 warm-up steps
+CACHE_TURN = 5  # steps a turn of the cached / uncached SimT A/B
+TOL_AUX = 1e-3  # card vs CPU and cached vs uncached: losses, relative (abs 1e-4)
+# Card vs CPU: each module's parameter change over the first small step, relative by
+# norm. Random-init batch statistics amplify one-ulp differences from step to step (on
+# the CPU alone, one thread and four drift apart over three Res_Deeplab steps), so the
+# change is read after the first step.
+TOL_CHANGE = 5e-2
+
+
+def phase_aux_head_vs_plain() -> dict:
+    """B1 at the auxiliary eval paths' shapes with uint8 gt, against its plain version
+    (equal totals, the L1 bound of ``phase_kernel_vs_plain``) and bit for bit against its
+    own arithmetic (``kernel_arithmetic``) and between reruns: VGG's 64x128 + 80x160
+    logits at batch 1; DeepLabv3's 512x1024 + 640x1280 at batch 1 and 4 (its eval's
+    batch), iid and regions gt. Returns the worst errors at DeepLabv3's shapes."""
+    worst = {"max_abs_err": 0, "l1_err": 0}
+    cases = {"vgg_batch1": ("deeplab_vgg", 1, "iid"), "v3_batch1": ("deeplabv3", 1, "iid"),
+             "v3_batch4": ("deeplabv3", 4, "iid"),
+             "v3_batch4_regions": ("deeplabv3", 4, "regions")}
+    rng = np.random.default_rng(SEED + 11)
+    for name, (arch, batch, gmap) in cases.items():
+        hw_a, hw_b = AUX_HEAD_HW[arch]
+        la, lb, gt = head_inputs(rng, batch=batch, hw_a=hw_a, hw_b=hw_b, gt=gmap)
+        g8 = gt.to(torch.uint8)
+        hw = dict(out_hw=OUT_HW, num_classes=C)
+        exact = kernel_arithmetic(la, lb, gt, **hw)
+        want = eval_fused.multiscale_argmax_hist_reference(la, lb, gt, **hw)
+        runs = [eval_fused.multiscale_argmax_hist(la, lb, g8, **hw) for _ in range(2)]
+        torch.cuda.synchronize()
+        got, want = runs[0].cpu().long(), want.cpu().long()
+        counted = int(((gt >= 0) & (gt < C)).sum())
+        l1, mx = int((got - want).abs().sum()), int((got - want).abs().max())
+        limit = max(2.0, 2e-5 * OUT_HW[0] * OUT_HW[1] * batch)
+        ok = int(got.sum()) == int(want.sum()) == counted and l1 <= limit
+        same = all(torch.equal(r, exact) for r in runs)
+        sched = eval_fused.schedule(*hw_a, *hw_b, OUT_HW, C, batch)
+        print(f"eval_fused vs plain [{name}: la {batch}x{hw_a[0]}x{hw_a[1]}x{C}, lb "
+              f"{batch}x{hw_b[0]}x{hw_b[1]}x{C}, {gmap} uint8 gt]: total {int(got.sum())}/"
+              f"{int(want.sum())} (counted {counted}), L1 {l1} (limit {limit:.0f}), max abs "
+              f"{mx}: {'ok' if ok else 'MISMATCH'}; both runs equal to its own arithmetic "
+              f"bit for bit: {'yes' if same else 'NO'}; schedule {len(sched.blocks)} "
+              f"blocks, {sched.smem} B shared memory a block")
+        if not (ok and same):
+            fail(f"eval_fused at {name}: plain {'ok' if ok else 'MISMATCH'}, own arithmetic "
+                 f"{'ok' if same else 'DIFFERS'}")
+        if arch == "deeplabv3":
+            worst["max_abs_err"] = max(worst["max_abs_err"], mx)
+            worst["l1_err"] = max(worst["l1_err"], l1)
+        del la, lb, gt, g8, exact
+        torch.cuda.empty_cache()
+    return worst
+
+
+def aux_config(arch: str, argv=()) -> TrainConfig:
+    """The warmup-stage config that ``tools/train_warmup.py --synthetic --model arch``
+    builds, with ``argv`` added (bf16, the 512x1024 crop)."""
+    args = train_warmup.build_parser().parse_args(["--synthetic", "--model", arch, *argv])
+    return train_warmup.build_config(args)
+
+
+def _rel_ok(got: float, want: float) -> bool:
+    return math.isfinite(got) and abs(got - want) <= max(1e-4, TOL_AUX * abs(want))
+
+
+def _changes_by_module(model: torch.nn.Module, start: dict) -> dict:
+    """Each top-level module's change of its trained parameters (``requires_grad``)
+    from ``start``, flattened into one float32 CPU vector."""
+    out = {}
+    for k, p in model.named_parameters():
+        if p.requires_grad:
+            out.setdefault(k.split(".")[0], []).append(
+                (p.detach().cpu() - start[k]).flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _changes_agree(got: dict, want: dict) -> Tuple[bool, float]:
+    """Every module's change on the card within ``TOL_CHANGE`` of the CPU's by norm,
+    and every one moved; also the worst relative error."""
+    if got.keys() != want.keys() or not want:
+        return False, math.inf
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        n = float(w.norm())
+        rel = float((got[k] - w).norm()) / n if n > 0 else math.inf
+        worst = max(worst, rel)
+        ok = ok and n > 0 and rel <= TOL_CHANGE
+    return ok, worst
+
+
+def _small_models(arch: str, c: int):
+    if arch == "deeplab_single":
+        return DeeplabSingle(c, layers=(1, 1, 1, 1), dtype=torch.float32)
+    if arch == "deeplab_vgg":
+        return DeeplabVGG(c, dtype=torch.float32)
+    return DeepLabv3(c, dtype=torch.float32)
+
+
+def phase_aux_small(tmp: str) -> None:
+    """float32, card against CPU at small geometry (C5, 64x128; Res_Deeplab at layers
+    (1,1,1,1)): each new model's eval forward (within 1e-3 of the output's largest
+    magnitude), three warmup steps of each new arch and three adversarial warmup steps
+    (losses within 1e-3 relative, abs 1e-4; with no weight decay, so that a change
+    comes from the gradients alone, each top-level module's change of its trained parameters
+    over the first step within ``TOL_CHANGE`` of the CPU's by norm, and every one moved);
+    three SimT steps (the golden geometry) fed
+    from the teacher cache (float32 storage) against three uncached ones on the card
+    (losses within 1e-3)."""
+    c, hw = 5, (64, 128)
+    batches = [synthetic_batch(1, hw, c, seed=SEED + i) for i in range(3)]
+    x = torch.from_numpy(batches[0]["image"]).permute(0, 3, 1, 2)
+    ok = True
+    for arch in AUX_ARCHS:
+        model = init_weights(_small_models(arch, c), torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            want = model.eval()(x)
+            got = copy.deepcopy(model).cuda().eval()(
+                x.cuda().contiguous(memory_format=torch.channels_last))
+        want, got = (t[0] if isinstance(t, tuple) else t for t in (want, got))
+        err = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        f_ok = got.shape == want.shape and err <= TOL_AUX
+        cfg = TrainConfig(stage="warmup", model=ModelConfig(
+            arch=arch, num_classes=c, compute_dtype="float32"),
+            optim=OptimConfig(num_steps=1000, weight_decay=0.0))
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        losses, moved = {}, {}
+        for dev in ("cpu", "cuda"):
+            st = create_warmup_state(copy.deepcopy(model), cfg, dev)
+            step = make_warmup_step(cfg)
+            losses[dev] = []
+            for i, b in enumerate(batches):
+                losses[dev].append({k: float(v) for k, v in step(st, b).items()})
+                if i == 0:
+                    moved[dev] = _changes_by_module(st.model, start)
+        s_ok = all(_rel_ok(g[k], w[k]) for g, w in zip(losses["cuda"], losses["cpu"])
+                   for k in ("loss_seg1", "loss_seg2"))
+        p_ok, p_err = _changes_agree(moved["cuda"], moved["cpu"])
+        print(f"small {arch}: forward cuda vs cpu within {err:.2e} of its max (limit "
+              f"{TOL_AUX:g}); 3 warmup steps loss_seg2 cuda "
+              f"{[round(m['loss_seg2'], 6) for m in losses['cuda']]} cpu "
+              f"{[round(m['loss_seg2'], 6) for m in losses['cpu']]}; step 1's change of "
+              f"{', '.join(sorted(moved['cpu']))} within {p_err:.2e} of the CPU's by norm "
+              f"(limit {TOL_CHANGE:g}): {'ok' if f_ok and s_ok and p_ok else 'MISMATCH'}")
+        ok = ok and f_ok and s_ok and p_ok
+
+    cfg = TrainConfig(stage="warmup", model=ModelConfig(num_classes=c,
+                                                        compute_dtype="float32"),
+                      optim=OptimConfig(num_steps=1000, weight_decay=0.0))
+    seg = init_weights(ResNetMulti(c, 0, False, layers=(1, 1, 1, 1), dtype=torch.float32),
+                       torch.Generator().manual_seed(SEED))
+    disc = init_weights(FCDiscriminator(c, dtype=torch.float32),
+                        torch.Generator().manual_seed(SEED + 1))
+    starts = [{k: p.detach().clone() for k, p in m.named_parameters()} for m in (seg, disc)]
+    losses, moved = {}, {}
+    for dev in ("cpu", "cuda"):
+        st = create_warmup_state(copy.deepcopy(seg), cfg, dev)
+        d = create_discriminator_state(copy.deepcopy(disc), dev)
+        step = make_adversarial_warmup_step(cfg)
+        losses[dev] = []
+        for i, b in enumerate(batches):
+            losses[dev].append({k: float(v) for k, v in step(st, d, b).items()})
+            if i == 0:
+                moved[dev] = {f"{who}.{k}": v for who, m, start in (
+                    ("seg", st.model, starts[0]), ("D", d.model, starts[1]))
+                              for k, v in _changes_by_module(m, start).items()}
+    p_ok, p_err = _changes_agree(moved["cuda"], moved["cpu"])
+    a_ok = p_ok and all(_rel_ok(g[k], w[k]) for g, w in zip(losses["cuda"], losses["cpu"])
+                        for k in ("loss_seg1", "loss_seg2", "loss_adv"))
+    print(f"small adversarial warmup: 3 steps loss_adv cuda "
+          f"{[round(m['loss_adv'], 6) for m in losses['cuda']]} cpu "
+          f"{[round(m['loss_adv'], 6) for m in losses['cpu']]}, loss_seg2 cuda "
+          f"{[round(m['loss_seg2'], 6) for m in losses['cuda']]} cpu "
+          f"{[round(m['loss_seg2'], 6) for m in losses['cpu']]}; step 1's change of "
+          f"the segmenter's and D's modules within {p_err:.2e} of the CPU's by norm (limit "
+          f"{TOL_CHANGE:g}): {'ok' if a_ok else 'MISMATCH'}")
+
+    gcfg = golden_config(tmp)
+    gc, go = gcfg.model.num_classes, gcfg.model.open_classes
+    student = init_weights(ResNetMulti(gc, go, True, layers=(1, 1, 1, 1),
+                                       dtype=torch.float32),
+                           torch.Generator().manual_seed(SEED))
+    teacher = init_weights(ResNetMulti(gc, 0, False, layers=(1, 1, 1, 1),
+                                       dtype=torch.float32),
+                           torch.Generator().manual_seed(SEED + 1))
+    named = [{k: torch.from_numpy(v).cuda() for k, v in
+              synthetic_batch(1, (32, 64), gc, seed=SEED + i).items()} for i in range(3)]
+    out = {}
+    for cached in (False, True):
+        st = create_simt_state(copy.deepcopy(student), copy.deepcopy(teacher), gcfg,
+                               torch.Generator().manual_seed(SEED + 2), "cuda")
+        cache = TeacherCache(st.teacher, store_dtype=torch.float32)
+        step = make_simt_step(gcfg)
+        feed = [cache.attach({**b, "name": [str(i)], "mirror": [False]}) if cached else b
+                for i, b in enumerate(named)]
+        out[cached] = [{k: float(v) for k, v in step(st, b).items()} for b in feed]
+    c_ok = all(_rel_ok(g[k], w[k]) for g, w in zip(out[True], out[False])
+               for k in ("loss", "loss_seg_p", "loss_seg_y", "anchor", "place"))
+    print(f"small SimT steps on the card, teacher cache (float32 storage) vs teacher "
+          f"forward: loss {[round(m['loss'], 6) for m in out[True]]} vs "
+          f"{[round(m['loss'], 6) for m in out[False]]}: {'ok' if c_ok else 'MISMATCH'}")
+    if not (ok and a_ok and c_ok):
+        fail("an auxiliary model or stage on the card disagrees with the CPU at small size")
+
+
+def phase_aux_eval(tmp: str) -> dict:
+    """The two-scale ``evaluate(device="cuda")`` of each auxiliary family at full width
+    (seeded random weights, built as ``tools/test.py --model`` builds it: simt mode,
+    DeepLabv3 open-set, its 34 channels sliced to 19) over the main path's 4 synthetic
+    2048x1024 images, after one warm-up pass; DeepLabv3 at batch 4. Launch counts held
+    to each path's own: one B1 a batch into the running histogram; Res_Deeplab's 33
+    bottleneck conv2s on B4 at each scale; none for VGG and DeepLabv3 (cuDNN)."""
+    paths = {"root": os.path.join(tmp, "full"),
+             "val_txt": os.path.join(tmp, "full", "lists", "val.txt"),
+             "gt_dir": os.path.join(tmp, "full", "label")}
+    out = {}
+    for arch in AUX_ARCHS:
+        args = train_simt.build_parser().parse_args(["--model", arch])
+        cfg = common.build_config(args, stage="simt")
+        model, _ = loop.build_models(cfg)
+        batch = AUX_EVAL_BATCH[arch]
+        kw = dict(data_root=paths["root"], val_list=paths["val_txt"],
+                  gt_dir=paths["gt_dir"], mode="simt", return_hist=True, device="cuda",
+                  batch_size=batch, print_fn=lambda s: None)
+        evaluate(model, **kw)  # warm-up: cuDNN plans, allocator
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, hist = evaluate(model, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, variants = read_counts(), read_variants()
+        calls = N_IMAGES // batch
+        want = {"multiscale_argmax_hist": calls}
+        if arch == "deeplab_single":
+            want["conv3x3_fwd"] = 2 * N_CONV2 * N_IMAGES
+        print(f"main path: evaluate(simt, two scales) of {arch} (tools/test.py --model "
+              f"{arch}), batch {batch}, over {N_IMAGES} 2048x1024 images: {seconds:.3f} s, "
+              f"{N_IMAGES / seconds:.3f} img/s, mIoU {miou}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters")
+        check_counts(f"eval {arch}", launches, want)
+        check_wgmma(f"eval {arch}", variants)
+        if hist.sum() != N_IMAGES * OUT_HW[0] * OUT_HW[1] or not math.isfinite(miou):
+            fail(f"eval {arch}: histogram total {hist.sum()} or mIoU {miou} is wrong")
+        out[arch] = {"launches": launches, "seconds": seconds, "batch": batch}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_aux_path(path: str, call, step, want: dict) -> dict:
+    """2 warm-up calls of ``call(i)`` (one train step on batch i), then every launch
+    count zeroed, AUX_TIMED timed calls with the step's CUDA-event spans, the counts read
+    and held to ``want`` (a step's launches), the metrics finite."""
+    for i in range(2):
+        call(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step.spans = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [call(2 + i) for i in range(AUX_TIMED)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / AUX_TIMED * 1e3
+    launches, variants = read_counts(), read_variants()
+    parts = {}
+    for name, start, end in step.spans:
+        parts[name] = parts.get(name, 0.0) + start.elapsed_time(end) / AUX_TIMED
+    step.spans = None
+    vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(math.isfinite(v) for m in vals for v in m.values()):
+        fail(f"{path}: non-finite metrics {vals}")
+    print(f"main path: {path}, full width, batch 1, 512x1024, bf16 autocast: {AUX_TIMED} "
+          f"steps, {wall_ms:.3f} ms per step, {1e3 / wall_ms:.3f} steps/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; parts (CUDA events, ms per "
+          "step): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; last metrics {vals[-1]}")
+    check_counts(path, launches, {k: v * AUX_TIMED for k, v in want.items()})
+    check_wgmma(path, variants)
+    return {"wall_ms": wall_ms, "parts": parts, "launches": launches,
+            "metrics": vals[-1]}
+
+
+def phase_aux_warmup() -> dict:
+    """The warmup step of each auxiliary family and the adversarial warmup step
+    (DeepLabv2 + FCDiscriminator) at full width through ``tools/train_warmup.py``'s
+    config and ``loop.build_models`` (seeded random weights, synthetic 512x1024
+    batches). Launches a step: Res_Deeplab and the adversarial DeepLabv2 B4 66 (33
+    forward + 33 input gradients) and B5 33, as the DeepLabv2 warmup; VGG and
+    DeepLabv3 none."""
+    out = {}
+    for arch in AUX_ARCHS:
+        cfg = aux_config(arch)
+        state = create_warmup_state(loop.build_models(cfg)[0], cfg, "cuda")
+        batches = train_simt.synthetic_batches(cfg, 4, torch.device("cuda"))
+        step = make_warmup_step(cfg)
+        want = ({"conv3x3_fwd": 2 * N_CONV2, "conv3x3_wgrad": N_CONV2}
+                if arch == "deeplab_single" else {})
+        out[arch] = drive_aux_path(f"warmup step ({arch})",
+                                   lambda i: step(state, batches[i % 4]), step, want)
+        del state
+        torch.cuda.empty_cache()
+    cfg = aux_config("deeplab_multi", ["--adversarial"])
+    state = create_warmup_state(loop.build_models(cfg)[0], cfg, "cuda")
+    disc = init_weights(FCDiscriminator(cfg.model.num_classes),
+                        torch.Generator().manual_seed(cfg.random_seed + 1))
+    d_state = create_discriminator_state(disc, "cuda")
+    batches = train_simt.synthetic_batches(cfg, 4, torch.device("cuda"))
+    step = make_adversarial_warmup_step(cfg)
+    out["adversarial"] = drive_aux_path(
+        "adversarial warmup step (DeepLabv2 + FCDiscriminator)",
+        lambda i: step(state, d_state, batches[i % 4]), step,
+        {"conv3x3_fwd": 2 * N_CONV2, "conv3x3_wgrad": N_CONV2})
+    del state, d_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_aux_head_times() -> dict:
+    """B1 at DeepLabv3's eval shapes (512x1024 + 640x1280 logits, batch 4, uint8 gt with
+    ``out=``, as ``evaluate`` calls it), timed as ``phase_kernel_times`` times the main
+    path's: the wrapper (events), its kernel (profiler), its device operations (one or
+    the run fails), the bound (bytes here: each image's ~94 MB of float32 logits), the
+    plain version and the library chain (interpolate x2, argmax, bincount). Returns the
+    kernels line's entry; ``launches`` and the errors against the plain version are
+    added by the eval and check phases that run later."""
+    hw_a, hw_b = AUX_HEAD_HW["deeplabv3"]
+    batch = AUX_EVAL_BATCH["deeplabv3"]
+    la, lb, gt = head_inputs(np.random.default_rng(SEED), batch=batch, hw_a=hw_a,
+                             hw_b=hw_b)
+    r = time_launches({"uint8": head_calls(eval_fused, la, lb, gt)["uint8"]},
+                      HEAD_WORD)["uint8"]
+    r.update(head_bound(gt, 1, hw_a, hw_b))
+    sched = eval_fused.schedule(*hw_a, *hw_b, OUT_HW, C, batch)
+    print(f"multiscale_argmax_hist [DeepLabv3 eval, batch {batch}, uint8 gt, out=]: wrapper "
+          f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms ({r['kernel_ms'] / batch:.4f} "
+          f"an image), {r['device_ops']} device operation(s) a call; host "
+          f"{r['host_us']:.1f} us; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({r['bytes']} bytes, {r['ops']} operations); {len(sched.blocks)} blocks of "
+          f"{sched.threads} threads, {sched.smem} B shared memory each")
+    if r["launches"] != 1 or r["device_ops"] != 1:
+        fail(f"multiscale_argmax_hist at DeepLabv3's shapes: {r['device_ops']} device "
+             "operations a call, want its kernel alone")
+    plain_ms = cuda_ms(lambda: eval_fused.multiscale_argmax_hist_reference(
+        la, lb, gt, out_hw=OUT_HW, num_classes=C), iters=3, warmup=1)
+    la_nchw, lb_nchw = (t.permute(0, 3, 1, 2).contiguous() for t in (la, lb))
+
+    def library():
+        up = F.interpolate(la_nchw, size=OUT_HW, mode="bilinear", align_corners=True)
+        up = up + F.interpolate(lb_nchw, size=OUT_HW, mode="bilinear", align_corners=True)
+        pred = up.argmax(1).reshape(-1)
+        g = gt.reshape(-1)
+        k = (g >= 0) & (g < C)
+        return torch.bincount(C * g[k] + pred[k], minlength=C * C)
+
+    library_ms = cuda_ms(library, iters=3, warmup=1)
+    print(f"multiscale_argmax_hist [DeepLabv3 eval]: plain {plain_ms:.3f} ms, library "
+          f"chain {library_ms:.3f} ms")
+    return {
+        "name": "multiscale_argmax_hist_deeplabv3", "route": "cuda",
+        "source": "simt_tpu_torch/csrc/eval_fused.cu",
+        "replaces": "simt_tpu/ops/pallas/eval_fused.py:35",
+        "launches": None, "max_abs_err": None, "l1_err": None,
+        "ms": r["ms"], "kernel_ms": r["kernel_ms"], "kernel_ms_by": r["kernel_ms_by"],
+        "device_ops": r["device_ops"], "host_us": r["host_us"], "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": library_ms,
+        "bytes": r["bytes"], "ops": r["ops"], "blocks": len(sched.blocks),
+        "smem_bytes": sched.smem,
+        "shape": f"la {batch}x{hw_a[0]}x{hw_a[1]}x19 f32, lb {batch}x{hw_b[0]}x{hw_b[1]}x19 "
+                 f"f32, gt {batch}x1024x2048 u8 -> 19x19 i32 (accumulated in place)",
+    }
+
+
+def phase_aux_teacher_cache(tmp: str, resident: dict) -> dict:
+    """The SimT step fed from the teacher cache at full width: ``build_loader`` over the
+    pipeline fixture's 12 images (4 process workers, the mirror off so that one pass
+    meets every key), wrapped by ``TeacherCache`` as ``train()`` wraps it. One pass of
+    misses (the teacher runs in ``attach``), then every launch count zeroed and turns of
+    CACHE_TURN steps, cached, uncached, uncached, cached (the uncached steps take the
+    same loader batches without ``teacher_prob8``), with the steps' CUDA-event spans.
+    A hit step's launches: B2 1, B3 1, B4 59 (the student's 33 forwards and 26 input
+    gradients) and B5 26; an uncached step's: the resident path's (B4 92)."""
+    cfg, state, step = simt_main_setup(tmp)
+    paths = {"root": os.path.join(tmp, "pipeline"),
+             "pseudo_lst": os.path.join(tmp, "pipeline", "lists", "pseudo.lst")}
+    pcfg = bench.pipeline_config(cfg, paths["root"], paths["pseudo_lst"], TRAIN_HW)
+    pcfg = pcfg.replace(data=dataclasses.replace(pcfg.data, mirror=False),
+                        simt=dataclasses.replace(pcfg.simt, cache_teacher=True))
+    raw = build_loader(pcfg, device="cuda")
+    out = {}
+    try:
+        cache = TeacherCache(state.teacher, mean_bgr=pcfg.data.mean_bgr)
+        feed = cache.wrap(raw)
+        t0 = time.perf_counter()
+        for _ in range(12):
+            m = step(state, next(feed))
+        float(m["loss"])
+        print(f"teacher cache: one pass of 12 images in {time.perf_counter() - t0:.1f} s "
+              f"(worker start-up included): {cache.misses} misses, {cache.hits} hits, "
+              f"{len(cache)} entries")
+        per_step = {k: v // TIMED_STEPS for k, v in resident["launches"].items()}
+        hit_step = dict(per_step, conv3x3_fwd=per_step["conv3x3_fwd"] - N_CONV2)
+        turns = {"cached": [], "uncached": []}
+        parts = {"cached": {}, "uncached": {}}
+        for mode in ("cached", "uncached", "uncached", "cached"):
+            batches = [next(feed) for _ in range(CACHE_TURN)]
+            if mode == "uncached":
+                batches = [{k: b[k] for k in ("image", "label")} for b in batches]
+            torch.cuda.synchronize()
+            reset_counts()
+            step.spans = []
+            t0 = time.perf_counter()
+            for b in batches:
+                m = step(state, b)
+            torch.cuda.synchronize()
+            turns[mode].append((time.perf_counter() - t0) / CACHE_TURN * 1e3)
+            for name, start, end in step.spans:
+                parts[mode][name] = (parts[mode].get(name, 0.0)
+                                     + start.elapsed_time(end) / (2 * CACHE_TURN))
+            step.spans = None
+            if not math.isfinite(float(m["loss"])):
+                fail(f"teacher cache ({mode}): non-finite loss {float(m['loss'])}")
+            check_counts(f"SimT step, {mode}", read_counts(),
+                         {k: v * CACHE_TURN for k, v in
+                          (hit_step if mode == "cached" else per_step).items()})
+        if cache.misses != 12 or cache.hits != 2 * CACHE_TURN * 2:
+            fail(f"teacher cache: {cache.misses} misses, {cache.hits} hits after the "
+                 f"first pass (want 12 and {4 * CACHE_TURN})")
+    finally:
+        raw.close()
+    for mode in turns:
+        print(f"main path: SimT step from build_loader, {mode} teacher, full width, batch 1, "
+              f"512x1024, in turns (cached, uncached, uncached, cached) of {CACHE_TURN} "
+              f"steps: {turns[mode][0]:.3f} / {turns[mode][1]:.3f} ms per step; parts (CUDA "
+              "events, ms per step): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts[mode].items()))
+        out[mode] = {"wall_ms": turns[mode], "parts": parts[mode]}
+    out["hits"], out["misses"] = cache.hits, cache.misses
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_aux_bench_cli(tmp: str) -> str:
+    """``python -m simt_tpu_torch.tools.bench --pipeline --cache-teacher`` in a process
+    of its own, as a user runs it (the JAX bench's 14 + 50 steps on its own 12-image
+    fixture): its one JSON line on stdout, with the ``_teacher_cache`` metric."""
+    res = subprocess.run([sys.executable, "-m", "simt_tpu_torch.tools.bench", "--pipeline",
+                          "--cache-teacher"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    if res.returncode or len(lines) != 1:
+        fail(f"bench --pipeline --cache-teacher exited {res.returncode}: "
+             f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if line["metric"] != ("simt_train_steps_per_sec_bs1_512x1024_with_input_pipeline"
+                          "_teacher_cache") or not line["value"] > 0:
+        fail(f"bench --pipeline --cache-teacher: {line}")
+    info = [s for s in res.stderr.splitlines() if "teacher cache:" in s or "busy share" in s]
+    print(f"bench --pipeline --cache-teacher: {lines[0]}; " + "; ".join(info))
+    return lines[0]
+
+
 # Every kernel wrapper of the package, by name; each counts its own launches.
 COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
            "loss_core_fwd": loss_fused.loss_core_fwd,
@@ -1683,13 +2182,13 @@ def phase_bneck_library_free() -> list:
     out, dy = run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_session()
         out, _ = fused_bottleneck(x, *ws, *vecs, d)
         torch.autograd.grad(out, (x, *ws), dy)
         torch.cuda.synchronize()
     names = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            names[e.name] = names.get(e.name, 0) + 1
+    for e in kernel_events(prof):
+        names[e.name] = names.get(e.name, 0) + 1
     ours = {n for n in names if "bneck_" in n}
     library = [n for n in names if n not in ours
                and any(k in n.lower() for k in LIBRARY_KERNEL_WORDS)]
@@ -1873,6 +2372,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         bench = phase_bneck_bench()
         entry = phase_kernel_times(launches, worst)
+        aux_entry = phase_aux_head_times()
         device_ms = sum(forward_ms) + entry["kernel_ms"]
         print(f"device time per image (forwards + kernel): {device_ms:.3f} ms; main path "
               f"wall time per image: {seconds / N_IMAGES * 1e3:.3f} ms; device busy share "
@@ -1884,12 +2384,26 @@ def main() -> int:
         bneck_entries = phase_bneck_times(bench, paths, bneck_worst)
         loss_worst = phase_loss_kernels_vs_plain(rng)
         loss_entries = phase_loss_kernel_times(train["launches"], loss_worst)
+        # The auxiliary models and stages after every profiler reading above (a run
+        # with their checks before the eval main path read no B1 launch there).
+        aux_entry.update(phase_aux_head_vs_plain())
+        phase_aux_small(tmp)
+        aux_eval = phase_aux_eval(tmp)
+        aux_entry["launches"] = aux_eval["deeplabv3"]["launches"]["multiscale_argmax_hist"]
+        aux_warm = phase_aux_warmup()
+        # The teacher cache's phase and the bench CLI use build_loader's worker processes.
+        phase_aux_teacher_cache(tmp, train)
+        phase_aux_bench_cli(tmp)
+        print("auxiliary paths' launches: " + json.dumps(
+            {**{f"eval {a}": v["launches"] for a, v in aux_eval.items()},
+             **{f"warmup {a}": v["launches"] for a, v in aux_warm.items()}}))
         # The train loop last, on the fixtures of the eval and pipeline phases: its
         # profiler session (--profile-dir) and its worker processes come after every
         # kernel timing of the phases above.
         phase_train_loop(tmp, smi, train)
 
-    print(json.dumps({"kernels": [entry, *loss_entries, *conv_entries, *bneck_entries]}))
+    print(json.dumps({"kernels": [entry, aux_entry, *loss_entries, *conv_entries,
+                                  *bneck_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

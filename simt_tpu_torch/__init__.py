@@ -15,8 +15,10 @@ to the card (``data/pipeline.py``, ``train/loop.py::build_loader``) and the benc
 snapshots and resume (``train/loop.py::train``, ``train/checkpoint.py``), the CLIs on
 their shared flags (``tools/common.py``: ``train_simt``, ``train_warmup``, ``test``)
 and the offline tools (``compute_iou``, ``compute_class_distribution``,
-``compute_confusion_matrix``, ``export_torch``). Entry points run on the card
-(``device="cuda"``) unless the caller asks for the CPU.
+``compute_confusion_matrix``, ``export_torch``); the auxiliary models (Res_Deeplab,
+DeepLab-VGG, DeepLabv3, the FCDiscriminator) with the adversarial warmup
+(``train/adversarial.py``) and the teacher-posterior cache (``train/teacher_cache.py``).
+Entry points run on the card (``device="cuda"``) unless the caller asks for the CPU.
 """
 
 from . import config

@@ -2,9 +2,8 @@
 
 The evaluation protocol's constants and the training dataclasses of both stages
 (warmup and SimT) with the named presets of the published runs. All defaults are
-documented against the reference file:line they reproduce. The JAX package's other
-model families (``ModelConfig.arch``), their ASPP variants and the device mesh come
-with ROADMAP A-5 and A-4: a config that asks for them raises.
+documented against the reference file:line they reproduce. The JAX package's device
+mesh comes with ROADMAP A-4.
 """
 
 from __future__ import annotations
@@ -63,12 +62,15 @@ class DataConfig:
     source: str = "cityscapes_pseudo"
 
 
+# The model families (the reference's MODEL choices, evaluate_cityscapes.py:38).
+ARCHS: Tuple[str, ...] = ("deeplab_multi", "deeplab_single", "deeplab_vgg", "deeplabv3")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The DeepLabv2-ResNet-101 heads (reference: model/deeplab_multi.py)."""
+    """Model family and head configuration (reference: model/deeplab_multi.py)."""
 
-    # The model family. The port builds "deeplab_multi" only; the JAX package's
-    # deeplab_single, deeplab_vgg and deeplabv3 come with ROADMAP A-5.
+    # One of ARCHS. The SimT stage trains deeplab_multi only (trainV2_simt.py:250).
     arch: str = "deeplab_multi"
     num_classes: int = NUM_CLASSES  # NUM_CLASSES, trainV2_simt.py:50
     open_classes: int = OPEN_CLASSES  # sh_simt.sh:17 (module default 15, :51)
@@ -79,17 +81,19 @@ class ModelConfig:
     # "float32": everything in float32.
     compute_dtype: str = "bfloat16"
     # The ASPP branches the heads sum: 2 is the reference quirk (a return inside the
-    # loop, deeplab_multi.py:115-119). Res_Deeplab's 4 comes with ROADMAP A-5.
+    # loop, deeplab_multi.py:115-119). Res_Deeplab always sums 4 (deeplab.py:112-116),
+    # so for that arch the config holds 4 whatever it is given. Branches past the
+    # count are frozen in every stage.
     aspp_effective_branches: int = 2
 
     def __post_init__(self):
-        if self.arch != "deeplab_multi":
-            raise ValueError(f"arch {self.arch!r}: the port builds 'deeplab_multi' only; "
-                             "the other model families come with ROADMAP A-5")
-        if self.aspp_effective_branches != 2:
-            raise ValueError(
-                f"aspp_effective_branches={self.aspp_effective_branches}: the port's "
-                "heads sum the reference's 2 branches; other counts come with ROADMAP A-5")
+        if self.arch not in ARCHS:
+            raise ValueError(f"unknown arch {self.arch!r} (one of {', '.join(ARCHS)})")
+        if self.arch == "deeplab_single":
+            object.__setattr__(self, "aspp_effective_branches", 4)
+        if not 1 <= self.aspp_effective_branches <= 4:
+            raise ValueError(f"aspp_effective_branches={self.aspp_effective_branches}: an "
+                             "ASPP head has 4 branches")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +126,8 @@ class SimTConfig:
     # Class-distribution prior for sig_NTM (deeplab_multi.py:255): a name under
     # data/assets/class_dist or a .npy path.
     class_dist: str = "bapa"
-    # Cache the frozen teacher's posterior (the JAX package's opt-in
-    # train/teacher_cache.py); comes with ROADMAP A-5, ``train()`` raises when set.
+    # Cache the frozen teacher's per-image posterior instead of recomputing it every step
+    # (train/teacher_cache.py). Off by default: cached entries are rounded to float16.
     cache_teacher: bool = False
     # Output-row chunk of the plain (CPU) loss core; the math is chunk-invariant.
     loss_chunk_rows: int = 64

@@ -117,18 +117,24 @@ class ClassifierModule(nn.Module):
     """ASPP classifier (``Classifier_Module``, deeplab_multi.py:104-119).
 
     Four dilated 3x3 convs with bias (dilations 6/12/18/24) are created, for checkpoint
-    compatibility; only the first two are summed, the reference's early-return quirk
-    (:115-119). The branch sum is taken in float32, then rounded to the activations'
-    dtype, as the JAX package does.
+    compatibility; the first ``effective_branches`` are summed. The multi-head and VGG
+    models sum two, the reference's early-return quirk (:115-119); Res_Deeplab sums all
+    four (deeplab.py:112-116). The branch sum is taken in float32, then rounded to the
+    activations' dtype, as the JAX package's ``ASPPHead`` does.
     """
 
-    def __init__(self, inplanes: int, num_classes: int):
+    def __init__(self, inplanes: int, num_classes: int, effective_branches: int = 2):
         super().__init__()
+        if not 1 <= effective_branches <= 4:
+            raise ValueError(f"effective_branches must be in 1..4, got {effective_branches}")
+        self.effective_branches = effective_branches
         self.conv2d_list = nn.ModuleList(
             nn.Conv2d(inplanes, num_classes, 3, padding=d, dilation=d, bias=True)
             for d in (6, 12, 18, 24)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv2d_list[0](x).float() + self.conv2d_list[1](x).float()
+        out = self.conv2d_list[0](x).float()
+        for conv in self.conv2d_list[1:self.effective_branches]:
+            out = out + conv(x).float()
         return out.to(x.dtype)

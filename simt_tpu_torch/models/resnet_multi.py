@@ -6,7 +6,7 @@
   - layer1 (3 blocks), layer2 (4 blocks, stride 2), layer3 (23 blocks, dilation 2),
     layer4 (3 blocks, dilation 4): output stride 8 (:134-137);
   - ``layer5`` ASPP on layer3 features (1024 ch), ``layer6`` on layer4 (2048 ch), with
-    the 2-branch sum quirk;
+    the 2-branch sum quirk (``aspp_effective_branches``, as the JAX model's);
   - optional open-set heads ``layer5_1`` / ``layer6_1`` concatenated on channels
     (:140-142, 182-190).
 
@@ -28,7 +28,8 @@ from .layers import ClassifierModule, frozen_bn, max_pool_ceil, res_stage
 
 class ResNetMulti(nn.Module):
     def __init__(self, num_classes: int = 19, open_classes: int = 0, openset: bool = False,
-                 layers: Sequence[int] = (3, 4, 23, 3), dtype: torch.dtype = torch.bfloat16):
+                 layers: Sequence[int] = (3, 4, 23, 3), dtype: torch.dtype = torch.bfloat16,
+                 aspp_effective_branches: int = 2):
         super().__init__()
         self.dtype = dtype
         self.openset = openset
@@ -40,13 +41,14 @@ class ResNetMulti(nn.Module):
         self.layer2 = res_stage(256, 128, layers[1], stride=2, dilation=1)
         self.layer3 = res_stage(512, 256, layers[2], stride=1, dilation=2)
         self.layer4 = res_stage(1024, 512, layers[3], stride=1, dilation=4)
-        self.layer5 = ClassifierModule(1024, num_classes)
-        self.layer6 = ClassifierModule(2048, num_classes)
+        eff = aspp_effective_branches
+        self.layer5 = ClassifierModule(1024, num_classes, eff)
+        self.layer6 = ClassifierModule(2048, num_classes, eff)
         self.layer5_1: Optional[ClassifierModule] = None
         self.layer6_1: Optional[ClassifierModule] = None
         if openset:
-            self.layer5_1 = ClassifierModule(1024, open_classes)
-            self.layer6_1 = ClassifierModule(2048, open_classes)
+            self.layer5_1 = ClassifierModule(1024, open_classes, eff)
+            self.layer6_1 = ClassifierModule(2048, open_classes, eff)
 
     def _head(self, x: torch.Tensor, known: nn.Module, open_: Optional[nn.Module]):
         out = known(x)
@@ -66,10 +68,11 @@ class ResNetMulti(nn.Module):
 
 
 def deeplab_multi(num_classes: int = 19, open_classes: int = 0, openset: bool = False,
-                  *, dtype: torch.dtype = torch.bfloat16) -> ResNetMulti:
+                  *, dtype: torch.dtype = torch.bfloat16,
+                  aspp_effective_branches: int = 2) -> ResNetMulti:
     """Factory matching ``DeeplabMulti`` (model/deeplab_multi.py:240-242): ResNet-101."""
     return ResNetMulti(num_classes, open_classes, openset, layers=(3, 4, 23, 3),
-                       dtype=dtype)
+                       dtype=dtype, aspp_effective_branches=aspp_effective_branches)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,10 +1,14 @@
-"""Bilinear resize with ``align_corners=True`` (counterpart of ``simt_tpu/ops/interp.py``).
+"""Bilinear resizes (counterpart of ``simt_tpu/ops/interp.py``).
 
-The resize is a separable linear map: ``out = A_h @ x @ A_w^T`` with the row-stochastic
-matrices of ``_interp_matrix`` (two non-zeros per row). The plain path applies them as
-two ``torch.matmul``s, H first then W, as the JAX package does. The fused eval kernel
+The align-corners resize (``align_corners=True``, the reference's logits upsample) is a
+separable linear map: ``out = A_h @ x @ A_w^T`` with the row-stochastic matrices of
+``_interp_matrix`` (two non-zeros per row). The plain path applies them as two
+``torch.matmul``s, H first then W, as the JAX package does. The fused eval kernel
 (``ops/kernels/eval_fused.py``) reads the same two non-zeros per row from
 ``interp_taps``, which is derived from the same matrices.
+
+The half-pixel resize (``align_corners=False``) is DeepLabv3's in-model upsample; it is
+``F.interpolate``, as the JAX package's is ``jax.image.resize``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=64)
@@ -89,3 +94,16 @@ def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) ->
     # (w_out, w_in) @ (B*h_out, w_in, C) -> (B*h_out, w_out, C)
     y = torch.matmul(a_w, y.reshape(b * h_out, w_in, c))
     return y.reshape(b, h_out, w_out, c)
+
+
+def upsample_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Half-pixel bilinear resize of NHWC ``x`` to ``out_hw`` (torch
+    ``align_corners=False``) in float32: DeepLabv3's in-model upsample
+    (model/deeplabv3.py:102,137). It equals the JAX package's ``jax.image.resize(...,
+    "linear")`` when upsampling; that one antialiases a downsample, this one does not.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)

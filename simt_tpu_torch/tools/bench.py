@@ -8,6 +8,9 @@ train step's throughput against the reference's rate.
     python -m simt_tpu_torch.tools.bench --pipeline --crop-cache
         the same with the decoded-crop cache: epoch 1 fills it, the timed steps decode no
         PNG
+    python -m simt_tpu_torch.tools.bench --pipeline --cache-teacher
+        the same with the teacher-posterior cache (``train/teacher_cache.py``): the
+        warm-up steps fill it, the timed steps skip the teacher's forward on hits
     python -m simt_tpu_torch.tools.bench --eval       two-scale eval img/s (bench_eval.py)
     python -m simt_tpu_torch.tools.bench --warmup     warmup steps/s (bench_warmup.py)
 
@@ -23,7 +26,8 @@ stage (bs 1, 1024x512, ``logs/BAPA_SimT_lr25.out`` timestamps; the warmup mode u
 as a proxy) and 1.55 img/s for the eval (500 val images x 2 scales in 550-750 s).
 
 The step counts are the JAX bench's: resident 3 warm-up + 20 timed steps; ``--pipeline``
-3 warm-up steps (14 with ``--crop-cache``, so that epoch 1 fills the cache) + 50 timed.
+3 warm-up steps (14 with ``--crop-cache`` or ``--cache-teacher``, so that epoch 1 fills
+the cache) + 50 timed.
 The run functions take the geometry and the step counts (the JAX bench's by default), so
 a test can run each mode on the CPU at a tiny size; on the CPU the convolutions run in
 float32 and no device time is measured.
@@ -49,6 +53,7 @@ from ..data.synthetic import make_cityscapes_fixture, synthetic_batch
 from ..device import resolve_device
 from ..models import ResNetMulti, init_weights
 from ..train import build_loader, create_simt_state, make_simt_step
+from ..train.teacher_cache import TeacherCache
 
 BASELINE_STEPS_PER_SEC = 1.29
 RESNET101 = (3, 4, 23, 3)
@@ -169,18 +174,22 @@ def pipeline_config(cfg, root: str, list_path: str, hw: Tuple[int, int],
         crop_cache_dir=crop_cache_dir))
 
 
-def pipeline(crop_cache: bool = False, *, image_wh: Tuple[int, int] = FIXTURE_WH,
+def pipeline(crop_cache: bool = False, *, cache_teacher: bool = False,
+             image_wh: Tuple[int, int] = FIXTURE_WH,
              hw: Tuple[int, int] = TRAIN_HW, n_images: int = FIXTURE_IMAGES,
              layers: Sequence[int] = RESNET101, warm: Optional[int] = None,
              steps: int = 50, loader_items: int = LOADER_ITEMS, device="cuda") -> dict:
     """SimT steps/s fed from PNGs on disk (the JAX bench's ``main_pipeline``): a fixture of
-    ``n_images`` at ``image_wh``, ``build_loader`` with the config's defaults, ``warm``
-    steps (3, or ``n_images + 2`` with the crop cache so that epoch 1 fills it), then
-    ``steps`` timed. Afterwards the loader alone: its start-up and host ms per item."""
+    ``n_images`` at ``image_wh``, ``build_loader`` with the config's defaults (wrapped by
+    a ``TeacherCache`` with ``cache_teacher``), ``warm`` steps (3, or ``n_images + 2``
+    with either cache, as the JAX bench), then ``steps`` timed. Epoch 1 fills the crop
+    cache; the teacher cache is keyed on (name, mirror), two keys an image with random
+    mirroring, so some of its misses fall inside the timed steps. Afterwards the loader
+    alone: its start-up and host ms per item."""
     dev = resolve_device(device)
     cfg, state, step = simt_setup(dev, layers=layers)
     if warm is None:
-        warm = n_images + 2 if crop_cache else 3
+        warm = n_images + 2 if crop_cache or cache_teacher else 3
     root = tempfile.mkdtemp(prefix="simt_torch_bench_fixture_")
     try:
         t0 = time.perf_counter()
@@ -192,11 +201,18 @@ def pipeline(crop_cache: bool = False, *, image_wh: Tuple[int, int] = FIXTURE_WH
                               os.path.join(root, "crop_cache") if crop_cache else "")
         batches = build_loader(cfg, device=dev)
         try:
-            wall_ms = timed_steps(step, state, lambda: next(batches), warm, steps, dev,
+            feed = batches
+            if cache_teacher:
+                cache = TeacherCache(state.teacher, mean_bgr=cfg.data.mean_bgr)
+                feed = cache.wrap(batches)
+            wall_ms = timed_steps(step, state, lambda: next(feed), warm, steps, dev,
                                   "loss")
-            profiled = [next(batches) for _ in range(3)]
+            profiled = [next(feed) for _ in range(3)]
         finally:
             batches.close()
+        if cache_teacher:
+            log(f"teacher cache: {cache.hits} hits, {cache.misses} misses, "
+                f"{len(cache)} entries")
         device_report(step, state, profiled, wall_ms, dev)
         first, per_item = loader_ms_per_item(cfg, loader_items)
         log(f"loader alone ({cfg.data.num_workers} "
@@ -207,7 +223,8 @@ def pipeline(crop_cache: bool = False, *, image_wh: Tuple[int, int] = FIXTURE_WH
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return line(f"simt_train_steps_per_sec_bs1_{hw[0]}x{hw[1]}_with_input_pipeline"
-                + ("_crop_cache" if crop_cache else ""),
+                + ("_crop_cache" if crop_cache else "")
+                + ("_teacher_cache" if cache_teacher else ""),
                 1e3 / wall_ms, "steps/s", BASELINE_STEPS_PER_SEC)
 
 
@@ -218,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crop-cache", action="store_true",
                    help="with --pipeline: the decoded-crop cache on")
     p.add_argument("--cache-teacher", action="store_true",
-                   help="with --pipeline: the teacher-posterior cache (not ported)")
+                   help="with --pipeline: the teacher-posterior cache "
+                        "(train/teacher_cache.py)")
     p.add_argument("--eval", action="store_true", help="two-scale eval img/s")
     p.add_argument("--warmup", action="store_true", help="warmup-stage steps/s")
     p.add_argument("--batch-size", type=int, default=1,
@@ -229,10 +247,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args, **kw) -> dict:
     """The mode ``args`` names; ``kw`` (geometry, step counts) goes to its function."""
-    if args.cache_teacher:
-        raise SystemExit("--cache-teacher: the teacher-posterior cache "
-                         "(train/teacher_cache.py) is not ported yet; it comes with "
-                         "ROADMAP queue A item 5 (A-5)")
+    if args.cache_teacher and not args.pipeline:
+        raise SystemExit("--cache-teacher goes with --pipeline: the cache is keyed on the "
+                         "loader's image names")
     if args.eval:
         from . import bench_eval
 
@@ -242,7 +259,8 @@ def run(args, **kw) -> dict:
 
         return bench_warmup.run(device=args.device, **kw)
     if args.pipeline:
-        return pipeline(args.crop_cache, device=args.device, **kw)
+        return pipeline(args.crop_cache, cache_teacher=args.cache_teacher,
+                        device=args.device, **kw)
     return resident(args.batch_size, device=args.device, **kw)
 
 

@@ -39,6 +39,8 @@ TRUNK_640 = (("eval640_layer1", 161, 321, 64, 1), ("eval640_layer2", 81, 161, 12
 SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 11, 14)
 KERNEL_WORD = "conv3x3_"  # every kernel of csrc/conv3x3.cu is named conv3x3_*
 PROFILE_PAD_S = 0.05  # host wait at each end of a profiler session (profile_kernels)
+PRIMER_LAUNCHES = 16  # spin kernels that open every profiler session (prime_session)
+PRIMER_WORD = "spin_kernel"  # torch.cuda._sleep's kernel
 # A profiled call's launches must sum to its device time by events (busy_ms) within
 # PROFILE_TOL of it plus PROFILE_TOL_MS (the gaps between launches), or the reading is
 # taken again, up to PROFILE_READINGS times (checked_launches).
@@ -99,6 +101,26 @@ def checked_launches(fn, iters: int) -> dict:
     return {"seq": best, "busy_ms": busy, "readings": reading, "agrees": agrees}
 
 
+def prime_session() -> None:
+    """Open a profiler session with PRIMER_LAUNCHES spin kernels and a synchronize. On
+    the H100 machines, from ~25 s into a process on, CUPTI dropped the first 3 kernel
+    records of every session (``tools/profiler_probe.py``: a one-kernel
+    session recorded nothing, 100 kernels 97); the primer's records take that loss, and
+    every reading leaves them out (PRIMER_WORD)."""
+    for _ in range(PRIMER_LAUNCHES):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def kernel_events(prof) -> list:
+    """The session's CUDA kernel and memory operations, without the annotation spans
+    that enclose them and the primer's spin kernels, in launch order."""
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and PRIMER_WORD not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
 def profile_kernels(fn, iters: int, ordered: bool = False):
     """{kernel name: (launches, device ms)} of ``iters`` calls of ``fn`` under
     torch.profiler, after 3 warm-up calls. With ``ordered``, the list of one call's
@@ -113,14 +135,13 @@ def profile_kernels(fn, iters: int, ordered: bool = False):
 
     def kernels(calls: int) -> list:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime_session()
             time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        return sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not e.is_user_annotation), key=lambda e: e.time_range.start)
+        return kernel_events(prof)
 
     for _ in range(3):
         fn()
@@ -148,13 +169,12 @@ def profile_steps(step, state, batches, n: int = 3, report: bool = True,
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_session()
         for i in range(n):
             step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)  # keeps the last kernels' records (profile_kernels)
-    # Device-side events, without the annotation spans that enclose kernels.
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+    kernels = kernel_events(prof)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n

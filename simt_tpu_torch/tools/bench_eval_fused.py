@@ -195,13 +195,14 @@ def head_calls(eval_fused, la, lb, gt) -> dict:
             "int32": lambda: fn(la, lb, gt32, out=hist, **kw)}
 
 
-def bound(gt: torch.Tensor, gt_bytes: int) -> dict:
-    """The least time of one call on an H100 SXM: ``work()`` on this gt's counted pixels
-    and width, at the peaks of ``loss_fused.bound``."""
+def bound(gt: torch.Tensor, gt_bytes: int, hw_a=LOGIT_HW[0], hw_b=LOGIT_HW[1]) -> dict:
+    """The least time of one call on an H100 SXM: ``work()`` on this gt's batch, counted
+    pixels and width and the logits' sizes, at the peaks of ``loss_fused.bound``."""
     from ..ops.kernels import eval_fused, loss_fused
 
     counted = int(((gt >= 0) & (gt < C)).sum())
-    nbytes, ops = eval_fused.work(*LOGIT_HW[0], *LOGIT_HW[1], OUT_HW, C, batch=1,
+    batch = gt.shape[0] if gt.dim() == 3 else 1
+    nbytes, ops = eval_fused.work(*hw_a, *hw_b, OUT_HW, C, batch=batch,
                                   n_counted=counted, gt_bytes=gt_bytes)
     ms, by, _ = loss_fused.bound(nbytes, ops, 0)
     return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "ops": ops,

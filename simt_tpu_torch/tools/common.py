@@ -3,10 +3,9 @@ flags of every trainer and of the eval CLI, the config they build, the synthetic
 fixture and the in-loop evaluation.
 
 Every flag of the JAX tools is accepted, ``--device`` in place of ``--platform``. The
-flags of later ports raise when set, naming the ROADMAP item that brings them:
+flags of the parallel port raise when set, naming the ROADMAP item that brings them:
 ``--mesh-data``, ``--mesh-spatial``, ``--coordinator``, ``--num-processes`` and
-``--process-id`` (A-4); ``--model`` other than ``deeplab_multi`` and
-``--cache-teacher`` (A-5).
+``--process-id`` (A-4).
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from ..device import resolve_device
 
 # (flag attribute, ROADMAP item) of the flags whose ports come later.
 LATER = (("mesh_data", "A-4"), ("mesh_spatial", "A-4"), ("coordinator", "A-4"),
-         ("num_processes", "A-4"), ("process_id", "A-4"), ("cache_teacher", "A-5"))
+         ("num_processes", "A-4"), ("process_id", "A-4"))
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
@@ -83,11 +82,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="prior name (bapa/sfdaseg/...) or .npy path")
     parser.add_argument("--compute-dtype", type=str, default=None,
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--model", type=str, default=None,
-                        choices=["deeplab_multi", "deeplab_single", "deeplab_vgg",
-                                 "deeplabv3"],
-                        help="model arch (evaluate_cityscapes.py:38); the port builds "
-                             "deeplab_multi, the others come with ROADMAP A-5")
+    parser.add_argument("--model", type=str, default=None, choices=config_lib.ARCHS,
+                        help="model arch (reference MODEL choice, evaluate_cityscapes.py:38)")
     parser.add_argument("--debug-nans", action="store_true",
                         help="autograd anomaly detection with NaN checks")
     parser.add_argument("--plot-ntm-every", type=int, default=0,
@@ -98,7 +94,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="on-disk decoded-crop cache dir (epochs after the first "
                              "decode no PNG; data/pipeline.py CropCache)")
     parser.add_argument("--cache-teacher", action="store_true",
-                        help="cache the frozen teacher's posterior (comes with ROADMAP A-5)")
+                        help="cache the frozen teacher's per-image posterior "
+                             "(float16; skips the per-step teacher forward)")
     parser.add_argument("--synthetic", action="store_true",
                         help="run on a generated small dataset in a temporary directory")
     parser.add_argument("--csv", type=str, default=None, help="metric CSV output path")
@@ -151,6 +148,8 @@ def build_config(args, stage: str) -> config_lib.TrainConfig:
     ]:
         if getattr(args, cli) is not None:
             simt = dataclasses.replace(simt, **{field: getattr(args, cli)})
+    if getattr(args, "cache_teacher", False):
+        simt = dataclasses.replace(simt, cache_teacher=True)
 
     model = dataclasses.asdict(cfg.model)
     for cli, field in [("num_classes", "num_classes"), ("open_classes", "open_classes"),
@@ -158,7 +157,7 @@ def build_config(args, stage: str) -> config_lib.TrainConfig:
         if getattr(args, cli) is not None:
             model[field] = getattr(args, cli)
     model["openset"] = stage == "simt"
-    model = config_lib.ModelConfig(**model)  # raises for another arch (ROADMAP A-5)
+    model = config_lib.ModelConfig(**model)
 
     data = cfg.data
     if args.data_dir_target:

@@ -1,15 +1,18 @@
 """Does ``torch.profiler`` still record CUDA activity in this process after child
-processes exit?
+processes exit, or after a while?
 
   python -m simt_tpu_torch.tools.profiler_probe [--children 8] [--torch-children]
-      [--sessions 40]
+      [--sessions 40] [--wait 30]
 
 Runs ``--sessions`` short profiler sessions, each around one small kernel, then starts
 ``--children`` spawned processes (each importing torch with ``--torch-children``; the
 loader's workers do, since they re-import the parent's main script) and waits for them
-to exit, then runs the sessions again. Prints one JSON line: the sessions that recorded
-no CUDA event, before and after, and the card's name. ``chip_smoke.py`` and the bench
-tools read kernel times and device operations from such sessions. Needs a card.
+to exit and ``--wait`` seconds more, then runs the sessions again, without and with the
+primer that opens ``bench_conv3x3``'s sessions (``prime_session``). Prints one JSON
+line: the sessions that recorded no CUDA event of the kernel, before and after, and the
+card's name.
+``chip_smoke.py`` and the bench tools read kernel times and device operations from such
+sessions. Needs a card.
 """
 
 from __future__ import annotations
@@ -28,22 +31,26 @@ def _child(import_torch: bool) -> None:
     time.sleep(2.0)
 
 
-def empty_sessions(n: int, pad_s: float = 0.05) -> int:
+def empty_sessions(n: int, pad_s: float = 0.05, primer: bool = False) -> int:
     """How many of ``n`` profiler sessions around one small kernel record no CUDA event
-    (``bench_conv3x3.profile_kernels``'s session: a host wait at each end)."""
+    of it (``bench_conv3x3.profile_kernels``'s session: a host wait at each end; with
+    ``primer``, its primer of spin kernels first, whose records do not count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from .bench_conv3x3 import kernel_events, prime_session
 
     x = torch.ones(1024, device="cuda")
     empty = 0
     for _ in range(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if primer:
+                prime_session()
             time.sleep(pad_s)
             x.mul(2)
             torch.cuda.synchronize()
             time.sleep(pad_s)
-        empty += not any(e.device_type == torch.autograd.DeviceType.CUDA
-                         for e in prof.events())
+        empty += not kernel_events(prof)
     return empty
 
 
@@ -52,6 +59,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--children", type=int, default=8)
     p.add_argument("--torch-children", action="store_true")
     p.add_argument("--sessions", type=int, default=40)
+    p.add_argument("--wait", type=float, default=0.0,
+                   help="seconds to wait after the children, before the second sessions")
     args = p.parse_args(argv)
     import torch
 
@@ -65,10 +74,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         proc.start()
     for proc in procs:
         proc.join(timeout=120)
+    time.sleep(args.wait)
     after = empty_sessions(args.sessions)
+    primed = empty_sessions(args.sessions, primer=True)
     out = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
            "children": args.children, "torch_children": args.torch_children,
-           "sessions": args.sessions, "empty_before": before, "empty_after": after}
+           "wait_s": args.wait, "sessions": args.sessions, "empty_before": before,
+           "empty_after": after, "empty_after_primed": primed}
     print(json.dumps(out))
     return out
 

@@ -1,5 +1,6 @@
 """Standalone evaluation CLI (counterpart of ``tools/test.py``; reference tools/test.py:
-228-243): build the model of ``--mode``'s stage, load a checkpoint, run the evaluation
+228-243): build the model of ``--model`` (DeepLabv2 multi-head by default; Res_Deeplab,
+DeepLab-VGG or DeepLabv3) for ``--mode``'s stage, load a checkpoint, run the evaluation
 protocol once.
 
   python -m simt_tpu_torch.tools.test --restore-from ckpt.pth \\
@@ -7,6 +8,7 @@ protocol once.
       --val-list simt_tpu_torch/data/assets/cityscapes_list/val.txt
   python -m simt_tpu_torch.tools.test --synthetic               # on the card
   python -m simt_tpu_torch.tools.test --synthetic --device cpu  # on the CPU
+  python -m simt_tpu_torch.tools.test --synthetic --model deeplabv3 --batch-size 4
 
 Takes the trainers' flags (``tools/common.py``). ``--synthetic`` writes a small fixture
 (two 128x64 val images) to a temporary directory and evaluates at scales 128x64 /

@@ -7,12 +7,16 @@ tools/trainV1_warmup.py + sh_warmup.sh:17).
   python -m simt_tpu_torch.tools.train_warmup --synthetic --num-steps-stop 3 --save-pred-every 2
   python -m simt_tpu_torch.tools.train_warmup --synthetic --num-steps-stop 3 --device cpu \\
       --num-classes 5 --input-size-target 64,32 --compute-dtype float32
+  python -m simt_tpu_torch.tools.train_warmup --synthetic --num-steps-stop 3 --adversarial
+  python -m simt_tpu_torch.tools.train_warmup --synthetic --num-steps-stop 3 --model deeplabv3
 
-Runs ``train/loop.py::train`` on the warmup stage (the closed-set DeepLabv2-ResNet-101,
-``--restore-from`` loaded after the reference's ``k[6:]``): the same loop, evaluation
-and snapshots as ``train_simt``, with the single-scale warmup evaluation. The preset
-defaults to ``warmup_bapa`` (NUM_STEPS_STOP 150 000, trainV1_warmup.py:52). The JAX
-CLI's ``--adversarial`` comes with ROADMAP A-5.
+Runs ``train/loop.py::train`` on the warmup stage (the closed-set model of ``--model``,
+DeepLabv2-ResNet-101 by default, ``--restore-from`` loaded after the reference's
+``k[6:]``): the same loop, evaluation and snapshots as ``train_simt``, with the
+single-scale warmup evaluation. The preset defaults to ``warmup_bapa`` (NUM_STEPS_STOP
+150 000, trainV1_warmup.py:52). ``--adversarial`` runs the JAX CLI's adversarial loop
+instead (``train/adversarial.py``: the model with an ``FCDiscriminator``; a loss line
+every ``--log-every`` steps, no evaluation and no snapshots).
 """
 
 from __future__ import annotations
@@ -21,8 +25,15 @@ import argparse
 import tempfile
 from typing import Optional, Sequence
 
+import torch
+
 from .. import config as config_lib
-from ..train.loop import train
+from ..models import FCDiscriminator, init_weights
+from ..train.adversarial import create_discriminator_state, make_adversarial_warmup_step
+from ..train.checkpoint import load_warmstart
+from ..train.loop import build_loader, build_models, train
+from ..train.warmup import create_warmup_state
+from ..utils import StepTimer, format_warmup_line
 from . import common
 
 
@@ -31,21 +42,55 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_common_args(p)
     p.set_defaults(preset="warmup_bapa")
     p.add_argument("--adversarial", action="store_true",
-                   help="the FCDiscriminator output-space loss (comes with ROADMAP A-5)")
+                   help="train with the FCDiscriminator output-space loss (an extension; "
+                        "the reference ships the discriminator unused)")
     return p
 
 
 def build_config(args) -> config_lib.TrainConfig:
     if args.preset not in config_lib.WARMUP_PRESETS:
         raise ValueError(f"preset {args.preset!r} is not a warmup preset")
-    if getattr(args, "adversarial", False):
-        raise ValueError("--adversarial comes with ROADMAP A-5; the port does not have it "
-                         "yet")
     return common.build_config(args, stage="warmup")
 
 
+def run_adversarial(cfg, device: torch.device) -> dict:
+    """The JAX CLI's adversarial loop (tools/train_warmup.py:14-49): the model and an
+    ``FCDiscriminator`` (seeded from ``random_seed + 1``) trained ``num_steps_stop``
+    steps on ``build_loader``'s batches, a loss line every ``log_every`` steps. Returns
+    ``state``, ``d_state``, ``steps_per_sec`` (the card synchronized first) and
+    ``final_metrics``."""
+    model, _ = build_models(cfg)
+    if cfg.restore_from:
+        load_warmstart(model, cfg.restore_from, strip_prefix=6)
+    state = create_warmup_state(model, cfg, device)
+    dtype = torch.float32 if cfg.model.compute_dtype == "float32" else torch.bfloat16
+    disc = init_weights(FCDiscriminator(cfg.model.num_classes, dtype=dtype),
+                        torch.Generator().manual_seed(cfg.random_seed + 1))
+    d_state = create_discriminator_state(disc, device)
+    step = make_adversarial_warmup_step(cfg)
+    batch_iter = build_loader(cfg, device=device)
+    metrics = {}
+    try:
+        timer = StepTimer()
+        for i_iter in range(cfg.num_steps_stop):
+            batch = next(batch_iter)
+            metrics = step(state, d_state, {k: batch[k] for k in ("image", "label")})
+            timer.tick()
+            if i_iter % cfg.log_every == 0:
+                print(f"{format_warmup_line(i_iter, cfg.num_steps, metrics)} "
+                      f"loss_adv = {float(metrics['loss_adv']):.3f}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        steps_per_sec = timer.rate()
+    finally:
+        batch_iter.close()
+    print("done (adversarial warmup)")
+    return {"state": state, "d_state": d_state, "steps_per_sec": steps_per_sec,
+            "final_metrics": {k: float(v) for k, v in metrics.items()}}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Returns ``train()``'s summary."""
+    """Returns ``train()``'s summary (``run_adversarial``'s with ``--adversarial``)."""
     args = build_parser().parse_args(argv)
     device = common.apply_device(args)
     cfg = build_config(args)
@@ -57,6 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 snapshot_dir=args.snapshot_dir or "")
         print("Leanring_rate: ", cfg.optim.learning_rate)
         print("restore_from: ", cfg.restore_from)
+        if args.adversarial:
+            return run_adversarial(cfg, device)
         summary = train(cfg, eval_fn=common.build_eval_fn(cfg, args, paths, "warmup",
                                                           device),
                         csv_path=args.csv, resume=args.resume, profile_dir=args.profile_dir,

@@ -9,8 +9,7 @@ optimizer and step state, so runs resume.
 
 The steps never wait for the card; the loop reads it on log steps only (the line and
 the CSV row), at an evaluation and a snapshot, and once at the end. The JAX package's
-device mesh (``cfg.mesh``, per-process loader shards) comes with ROADMAP A-4 and its
-teacher cache with A-5.
+device mesh (``cfg.mesh``, per-process loader shards) comes with ROADMAP A-4.
 """
 
 from __future__ import annotations
@@ -28,34 +27,56 @@ from ..data import pipeline as pipeline_lib
 from ..data.pipeline import Loader, SegDataset, device_prefetch
 from ..device import resolve_device
 from ..models import ntm as ntm_lib
+from ..models.deeplab_single import res_deeplab
+from ..models.deeplab_vgg import deeplab_vgg
+from ..models.deeplabv3 import deeplabv3
 from ..models.resnet_multi import deeplab_multi, init_weights
 from ..utils import MetricWriter, StepTimer, format_simt_line, format_warmup_line
 from . import checkpoint as ckpt_lib
 from .simt import create_simt_state, make_simt_step
+from .teacher_cache import TeacherCache
 from .warmup import create_warmup_state, make_warmup_step
 
-# What a step reads of a batch (the JAX step's keys; the port's steps compute the
-# teacher's posterior themselves and ignore ``teacher_prob8``).
+# What a step reads of a batch (``teacher_prob8``: the teacher cache's posterior).
 STEP_KEYS = ("image", "label", "teacher_prob8")
 
 
 def build_models(cfg) -> Tuple[nn.Module, Optional[nn.Module]]:
-    """(student, teacher) of ``cfg.stage``, on the CPU with the reference's init: in the
-    SimT stage the open-set student (seeded with ``cfg.random_seed``) and the
+    """(student, teacher), dispatched on ``cfg.model.arch``, on the CPU with the
+    reference's init seeded from ``cfg.random_seed``.
+
+    ``deeplab_multi``: in the SimT stage the open-set student (``random_seed``) and the
     closed-set teacher (``random_seed + 1``); in the warmup stage the closed-set model
-    (``random_seed``) and None."""
+    and None. The other families (the reference's alternate eval models,
+    evaluate_cityscapes.py:12-14) return (model, None) in either stage: Res_Deeplab
+    (``deeplab_single``), DeepLab-VGG and DeepLabv3 (open-set per
+    ``cfg.model.openset``)."""
     dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     c = cfg.model.num_classes
+    eff = cfg.model.aspp_effective_branches
     seed = cfg.random_seed
-    if cfg.stage == "simt":
-        student = deeplab_multi(c, cfg.model.open_classes, openset=True, dtype=dtype)
-        teacher = deeplab_multi(c, 0, openset=False, dtype=dtype)
+    if cfg.stage not in ("simt", "warmup"):
+        raise ValueError(f"stage must be 'simt' or 'warmup', got {cfg.stage!r}")
+    arch = cfg.model.arch
+    if arch == "deeplab_multi" and cfg.stage == "simt":
+        student = deeplab_multi(c, cfg.model.open_classes, openset=True, dtype=dtype,
+                                aspp_effective_branches=eff)
+        teacher = deeplab_multi(c, 0, openset=False, dtype=dtype,
+                                aspp_effective_branches=eff)
         init_weights(student, torch.Generator().manual_seed(seed))
         init_weights(teacher, torch.Generator().manual_seed(seed + 1))
         return student, teacher
-    if cfg.stage != "warmup":
-        raise ValueError(f"stage must be 'simt' or 'warmup', got {cfg.stage!r}")
-    model = deeplab_multi(c, 0, openset=False, dtype=dtype)
+    if arch == "deeplab_multi":
+        model = deeplab_multi(c, 0, openset=False, dtype=dtype, aspp_effective_branches=eff)
+    elif arch == "deeplab_single":
+        model = res_deeplab(c, dtype=dtype)
+    elif arch == "deeplab_vgg":
+        model = deeplab_vgg(c, dtype=dtype)
+    elif arch == "deeplabv3":
+        model = deeplabv3(c, cfg.model.open_classes, openset=cfg.model.openset,
+                          dtype=dtype)
+    else:
+        raise ValueError(f"unknown arch {arch!r}")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model, None
 
@@ -154,9 +175,13 @@ def train(
     counts the loop alone, evaluations and snapshots inside it included.
     """
     dev = resolve_device(device)
-    if cfg.simt.cache_teacher:
-        raise ValueError("cache_teacher (the JAX package's teacher cache) comes with "
-                         "ROADMAP A-5")
+    if cfg.stage == "simt" and cfg.model.arch != "deeplab_multi":
+        # The reference's SimT stage drives DeeplabMulti only (trainV2_simt.py:250);
+        # the warmup stage trains every arch (the JAX package's refusal and message).
+        raise ValueError(
+            f"simt-stage training requires arch 'deeplab_multi' (got "
+            f"{cfg.model.arch!r}); the reference trains only DeeplabMulti in the "
+            "SimT stage (trainV2_simt.py:250)")
     print_fn("Start: " + time.asctime(time.localtime(time.time())))
     student, teacher = build_models(cfg)
     if cfg.stage == "simt":
@@ -195,6 +220,10 @@ def train(
         if batch_iter is None:
             batch_iter = build_loader(cfg, device=dev)
             stack.callback(batch_iter.close)  # stops the loader's workers
+        if cfg.stage == "simt" and cfg.simt.cache_teacher:
+            batch_iter = TeacherCache(state.teacher, mean_bgr=cfg.data.mean_bgr).wrap(
+                batch_iter)
+            print_fn("teacher cache enabled (float16 posteriors, skips teacher forward)")
         stack.callback(writer.close)
         prof = stack.enter_context(_profiler(dev)) if profile_dir else None
         timer = StepTimer()

@@ -8,7 +8,9 @@ One call of the step does what the reference does per iteration
     (:317) and never inside the loop, so the inner T-gradients accumulate and join the
     main loss's in the T update (:435), as in the reference and the JAX package;
     ``clear_inner_t_grads`` discards them;
-  - the frozen teacher (eval mode, ``no_grad``) and its stride-8 softmax of head 2;
+  - the frozen teacher (eval mode, ``no_grad``) and its stride-8 softmax of head 2, or
+    the batch's ``teacher_prob8`` when it carries one (``train/teacher_cache.py``), in
+    which case the teacher does not run;
   - the student forward in train mode and ``simt_loss_block`` (anchor, class-posterior
     CE, placeholder, noisy posterior; :370-409), the convex loss (:412-415), the
     guarded volume loss (:417-421) and the composite (:423-424);
@@ -58,8 +60,9 @@ def create_simt_state(model: nn.Module, teacher: nn.Module, cfg,
     t2 = ntm_state(ntm_lib.ntm_init(generator, c, o))
     return SimTState(
         model=model,
-        model_opt=make_model_optimizer(model, cfg.optim.momentum,
-                                       cfg.optim.weight_decay),
+        model_opt=make_model_optimizer(
+            model, cfg.optim.momentum, cfg.optim.weight_decay,
+            aspp_effective_branches=cfg.model.aspp_effective_branches),
         teacher=teacher,
         t1=t1, t2=t2,
         w1=ntm_state(ntm_lib.w_init(c, o)), w2=ntm_state(ntm_lib.w_init(c, o)),
@@ -92,7 +95,8 @@ _ACCUM = ("loss", "loss_seg_p", "loss_seg_y")
 class SimTStep:
     """The SimT train step: ``step(state, batch) -> metrics``, updating ``state`` in
     place. ``batch``: ``image`` (B, H, W, 3) mean-subtracted BGR float32 (or uint8) and
-    ``label`` (B, H, W) integer, with a leading ``iter_size`` axis when
+    ``label`` (B, H, W) integer, optionally ``teacher_prob8`` (B, h8, w8, C) float32,
+    the cached teacher posterior, with a leading ``iter_size`` axis when
     ``iter_size > 1``; numpy arrays or tensors.
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
@@ -163,8 +167,14 @@ class SimTStep:
 
             # ------- teacher posterior (:351-354) -------
             with self._span("teacher"), torch.no_grad():
-                _, teach2 = st.teacher(x)
-                teacher_prob8 = torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
+                if "teacher_prob8" in sub:
+                    # Cached (train/teacher_cache.py): the frozen teacher is a pure
+                    # function of (image, mirror), so it need not run every step.
+                    teacher_prob8 = torch.as_tensor(sub["teacher_prob8"],
+                                                    device=dev).float()
+                else:
+                    _, teach2 = st.teacher(x)
+                    teacher_prob8 = torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
 
             # ------- student forward + composite loss (:370-424) -------
             with self._span("student_forward"):

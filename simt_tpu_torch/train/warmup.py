@@ -4,14 +4,16 @@ One call of the step does what the reference does per iteration
 (tools/trainV1_warmup.py:204-232):
 
   - the forward of both heads in train mode (BatchNorm updates its running statistics
-    from the batch, as flax's ``mutable=["batch_stats"]``);
+    from the batch, as flax's ``mutable=["batch_stats"]``); a single-output model
+    (DeepLabv3) counts as both heads, the ``(x, x)`` convention of Res_Deeplab;
   - per head the align-corners upsample to the crop and the masked CE mean, streamed
     (``ops/fused_losses.py::upsample_ce``; logits already at the label's size take the
     plain ``cross_entropy_2d``, :75-81 of the JAX step);
   - ``loss = l2 + lambda_seg * l1`` (:222-224), divided by ``iter_size`` per sub-batch,
     the sub-batches on a leading axis (:212, :226-232), with the JAX step's metric
     conventions;
-  - one SGD step at the poly rate of the host-side step count, 1x for the trunk
+  - one SGD step at the poly rate of the host-side step count over the arch's warmup
+    groups (``param_label(warmup=True, arch=...)``): for DeepLabv2, 1x for the trunk
     (stem and layers 1-2 included) and 10x for the heads.
 
 The step never waits for the card: the metrics come back as 0-d tensors.
@@ -35,12 +37,14 @@ from .state import WarmupState, make_model_optimizer
 def create_warmup_state(model: nn.Module, cfg,
                         device: torch.device = torch.device("cuda")) -> WarmupState:
     """The warmup train state: ``model`` on ``device`` (in ``channels_last`` on a card)
-    in train mode, and SGD over its warmup groups (``param_label(warmup=True)``)."""
+    in train mode, and SGD over its warmup groups (``param_label(warmup=True)`` of
+    ``cfg.model.arch`` and ``aspp_effective_branches``)."""
     device = torch.device(device)
     fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
     model.to(device=device, memory_format=fmt).train()
     opt = make_model_optimizer(model, cfg.optim.momentum, cfg.optim.weight_decay,
-                               warmup=True)
+                               warmup=True, arch=cfg.model.arch,
+                               aspp_effective_branches=cfg.model.aspp_effective_branches)
     return WarmupState(model=model, model_opt=opt)
 
 
@@ -75,7 +79,9 @@ class WarmupStep:
                 label: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         ignore = cfg.ignore_label
-        x1, x2 = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        ys = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        # A single-output model (DeepLabv3) is both heads (JAX warmup.py:75-78).
+        x1, x2 = ys if isinstance(ys, tuple) else (ys, ys)
         x1, x2 = x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)
         if x1.shape[1:3] == label.shape[1:]:
             # Logits already at the input's size: plain masked CE, no upsample.

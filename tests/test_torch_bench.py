@@ -7,8 +7,9 @@ bench_warmup.py) on the CPU.
     names at that geometry;
   - the run functions default to the JAX bench's geometry and step counts, where the
     names above read ``..._512x1024`` and ``..._1024x2048``, the JAX bench's;
-  - without a card and without ``--device cpu`` every mode raises; ``--cache-teacher``
-    exits with an error that names A-5.
+  - ``--pipeline --cache-teacher`` feeds the step from the teacher cache and adds the
+    JAX bench's ``_teacher_cache`` suffix; without ``--pipeline`` it exits;
+  - without a card and without ``--device cpu`` every mode raises.
 """
 
 import inspect
@@ -94,12 +95,16 @@ def test_eval_and_warmup_tools_are_the_bench_modes(capsys):
     for tool in (bench_eval, bench_warmup):
         with pytest.raises(RuntimeError, match="cuda"):
             tool.main([])
-    with pytest.raises(SystemExit, match="A-5"):  # the same parser: --eval was prepended
+    with pytest.raises(SystemExit, match="--pipeline"):  # the same parser: --eval prepended
         bench_eval.main(["--cache-teacher"])
     assert capsys.readouterr().out == ""
 
 
-def test_cache_teacher_names_a5(capsys):
-    with pytest.raises(SystemExit, match="A-5"):
-        bench.main(["--pipeline", "--cache-teacher", "--device", "cpu"])
-    assert capsys.readouterr().out == ""
+def test_pipeline_with_the_teacher_cache(capsys):
+    out = bench.main(["--pipeline", "--cache-teacher", "--device", "cpu"],
+                     **dict(PIPE, warm=None))
+    line = _one_line(capsys)
+    assert line == out and line["metric"] == (
+        "simt_train_steps_per_sec_bs1_32x64_with_input_pipeline_teacher_cache")
+    with pytest.raises(SystemExit, match="--pipeline"):
+        bench.main(["--cache-teacher", "--device", "cpu"])

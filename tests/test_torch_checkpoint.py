@@ -263,10 +263,10 @@ def test_plot_ntm_every_writes_both_heat_maps(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path / "vis")) == ["NTM1_0.png", "NTM2_0.png"]
 
 
-def test_train_raises_for_the_teacher_cache_and_without_a_card(tmp_path):
+def test_train_raises_for_another_arch_in_simt_and_without_a_card(tmp_path):
     _, cfg = configs(tmp_path, "simt")
-    with pytest.raises(ValueError, match="A-5"):
-        loop.train(cfg.replace(simt=cfg.simt.__class__(cache_teacher=True)),
+    with pytest.raises(ValueError, match="requires arch 'deeplab_multi'"):
+        loop.train(cfg.replace(model=cfg.model.__class__(arch="deeplabv3")),
                    batch_iter=batches(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

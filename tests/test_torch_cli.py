@@ -8,8 +8,13 @@ devkit's 19):
     one and 3 CSV rows; ``--resume`` continues from step 3 to 4;
   - ``train_warmup --synthetic``: 3 steps, one evaluation, its snapshots;
   - ``test --synthetic --save-dir`` writes the prediction PNGs;
-  - a flag of a later ROADMAP item (A-4: the mesh and multi-host flags; A-5:
-    ``--model``, ``--cache-teacher``, ``--adversarial``) raises and names the item.
+  - ``test --model`` evaluates Res_Deeplab (layers (1,1,1,1)), DeepLab-VGG and
+    DeepLabv3; ``train_warmup --model deeplabv3`` trains DeepLabv3's groups;
+    ``train_warmup --adversarial`` runs the adversarial loop; ``train_simt
+    --cache-teacher`` feeds the step from the teacher cache; ``train_simt --model``
+    other than deeplab_multi raises the JAX package's error;
+  - a flag of a later ROADMAP item (A-4: the mesh and multi-host flags) raises and
+    names the item.
 """
 
 import os
@@ -67,14 +72,48 @@ def test_test_cli_saves_predictions(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-data", "2"], "A-4"), (["--mesh-spatial", "2"], "A-4"),
     (["--coordinator", "localhost:1"], "A-4"), (["--num-processes", "2"], "A-4"),
-    (["--process-id", "1"], "A-4"), (["--model", "deeplabv3"], "A-5"),
-    (["--model", "deeplab_single"], "A-5"), (["--cache-teacher"], "A-5")])
+    (["--process-id", "1"], "A-4")])
 def test_flags_of_later_items_raise_and_name_them(flag, item):
     for main in (train_simt.main, train_warmup.main, test_cli.main):
         with pytest.raises(ValueError, match=item):
             main(["--synthetic", "--device", "cpu"] + flag)
 
 
-def test_adversarial_warmup_raises_and_names_a5():
-    with pytest.raises(ValueError, match="A-5"):
-        train_warmup.main(["--synthetic", "--device", "cpu", "--adversarial"])
+@pytest.mark.parametrize("arch", ["deeplab_single", "deeplab_vgg", "deeplabv3"])
+def test_test_cli_evaluates_every_arch(arch, monkeypatch, capsys):
+    tiny_models(monkeypatch)
+    built = []
+    real = test_cli.build_models
+    monkeypatch.setattr(test_cli, "build_models", lambda cfg: built.append(cfg) or real(cfg))
+    miou = test_cli.main(["--synthetic", "--device", "cpu", "--compute-dtype", "float32",
+                          "--model", arch])
+    assert 0.0 <= miou <= 100.0 and "===> mIoU: " in capsys.readouterr().out
+    assert built[0].model.arch == arch
+    assert built[0].model.aspp_effective_branches == (4 if arch == "deeplab_single" else 2)
+
+
+def test_train_warmup_trains_deeplabv3(capsys):
+    out = train_warmup.main(CPU + ["--model", "deeplabv3", "--num-steps-stop", "2"])
+    assert capsys.readouterr().out.count("loss_seg1 = ") == 2
+    st = out["state"]
+    assert st.step == 2 and type(st.model).__name__ == "DeepLabv3"
+    assert st.model.layer3[0].bn2.weight.requires_grad  # v3's groups: BN affine trains
+    assert not st.model.conv1.weight.requires_grad
+
+
+def test_adversarial_warmup_runs(monkeypatch, capsys):
+    tiny_models(monkeypatch)
+    out = train_warmup.main(CPU + ["--adversarial", "--num-steps-stop", "2"])
+    text = capsys.readouterr().out
+    assert text.count("loss_adv = ") == 2 and "done (adversarial warmup)" in text
+    assert out["state"].step == 2
+    assert all(s["step"] == 2 for s in out["d_state"].opt.state.values())
+
+
+def test_train_simt_caches_the_teacher(monkeypatch, capsys):
+    tiny_models(monkeypatch)
+    out = train_simt.main(CPU + ["--cache-teacher", "--num-steps-stop", "2"])
+    assert "teacher cache enabled" in capsys.readouterr().out
+    assert out["state"].step == 2
+    with pytest.raises(ValueError, match="requires arch 'deeplab_multi'"):
+        train_simt.main(CPU + ["--model", "deeplabv3"])

@@ -15,7 +15,7 @@ from simt_tpu.models.resnet_multi import ResNetMulti as JResNetMulti
 from simt_tpu.train import loop as jloop
 from simt_tpu_torch import config as tconfig
 from simt_tpu_torch.data.synthetic import synthetic_batch
-from simt_tpu_torch.models import ResNetMulti
+from simt_tpu_torch.models import DeeplabSingle, ResNetMulti
 from simt_tpu_torch.train import loop
 
 C, O, HW = 5, 3, (32, 64)
@@ -23,9 +23,10 @@ LAYERS = (1, 1, 1, 1)
 
 
 def tiny_models(monkeypatch):
-    """Both packages' ``build_models`` build the layers (1,1,1,1) network, and JAX's
-    ``train()`` initialises it with ``jit(model.init)`` (the same values as its eager
-    ``model.init``, in a fraction of the time; no warm start)."""
+    """Both packages' ``build_models`` build the layers (1,1,1,1) network (the port's
+    Res_Deeplab too), and JAX's ``train()`` initialises it with ``jit(model.init)`` (the
+    same values as its eager ``model.init``, in a fraction of the time; no warm
+    start)."""
 
     def jtiny(num_classes=19, open_classes=0, openset=False, *, dtype,
               aspp_effective_branches=2):
@@ -33,8 +34,10 @@ def tiny_models(monkeypatch):
                             openset=openset, layers=LAYERS, dtype=dtype,
                             aspp_effective_branches=aspp_effective_branches)
 
-    def ttiny(num_classes=19, open_classes=0, openset=False, *, dtype):
-        return ResNetMulti(num_classes, open_classes, openset, layers=LAYERS, dtype=dtype)
+    def ttiny(num_classes=19, open_classes=0, openset=False, *, dtype,
+              aspp_effective_branches=2):
+        return ResNetMulti(num_classes, open_classes, openset, layers=LAYERS, dtype=dtype,
+                           aspp_effective_branches=aspp_effective_branches)
 
     def jinit(model, restore_from, input_hw, *, strip_prefix=0, rng=None):
         assert not restore_from
@@ -44,6 +47,8 @@ def tiny_models(monkeypatch):
     monkeypatch.setattr(jloop, "deeplab_multi", jtiny)
     monkeypatch.setattr(jloop.ckpt_lib, "load_warmstart_variables", jinit)
     monkeypatch.setattr(loop, "deeplab_multi", ttiny)
+    monkeypatch.setattr(loop, "res_deeplab", lambda num_classes=19, *, dtype: DeeplabSingle(
+        num_classes, layers=LAYERS, dtype=dtype))
 
 
 def configs(tmp_path, stage, snapshot_dir="", **kw):
