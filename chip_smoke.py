@@ -109,7 +109,20 @@ Phases (any failure exits non-zero before the last line is printed):
      and restore seconds and bytes and its crossing card -> CPU -> card bit for bit;
      the warmup CLI (3 steps, one single-scale evaluation, its snapshots);
      ``python -m simt_tpu_torch.tools.train_simt --profile-dir`` over 2 steps in a
-     process of its own, whose trace must name the loss and conv3x3 kernels.
+     process of its own, whose trace must name the loss and conv3x3 kernels;
+  9. data parallelism (``parallel/mesh.py``), last, each rank a process of its own:
+     the SimT CLI for 3 full-width steps in a one-rank NCCL group (``--coordinator``,
+     ``--num-processes 1``, ``--process-id 0``, ``--mesh-data 1``) against the same run
+     without those flags, the CSV rows and the last snapshot equal bit for bit; two
+     ranks sharing the card over gloo, batch 1 each, 3 SimT and 3 warmup steps at full
+     width against one process at batch 2 over the same global batches (the ranks'
+     states equal bit for bit after every step, the continuous losses within 5e-3
+     relative, each module's parameter change within 2e-2 of its norm, each rank's
+     launches B2/B3/B4/B5 1/1/92/26 a SimT step and B4/B5 66/33 a warmup step, B1 and
+     B6/B7 none), each rank's steps/s and ``grad_sync`` span (two ranks on one card
+     measure no scaling); ``evaluate`` sharded over the 4 images and row-split on a
+     spatial=2 mesh, each histogram equal bit for bit to one process's, B1 launched on
+     each rank.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -126,8 +139,10 @@ import dataclasses
 import importlib
 import json
 import math
+import multiprocessing
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -150,6 +165,8 @@ from simt_tpu_torch.models import (DeeplabSingle, DeeplabVGG, DeepLabv3,  # noqa
                                    FCDiscriminator, ResNetMulti, deeplab_multi,
                                    init_weights, layers)
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
+from simt_tpu_torch.parallel import (initialize_multihost, make_mesh,  # noqa: E402
+                                     replicate_state, shard_batch)
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
@@ -2333,6 +2350,313 @@ def phase_bneck_times(bench: dict, paths: dict, worst: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------------
+# Data parallelism: ranks over torch.distributed, last of all
+# ---------------------------------------------------------------------------------
+
+PAR_WORLD = 2  # two ranks sharing the one card over gloo (NCCL takes one rank a device)
+PAR_STEPS = 3  # train steps of each stage, from the seeded initialisation
+# The continuous losses against one process at batch 2: |a - b| <= 5e-3 max(1, |b|)
+# (tests/test_multihost.py's bound).
+TOL_PAR_LOSS = 5e-3
+# Each module's parameter change after the first step, by the norm of the reference's:
+# 2e-2, or twice the reference's own spread where that is larger. The spread is the
+# same process's change with the batch's two images swapped, the same sums in another
+# order: the random-init trunk's batch-statistic gradient does not reproduce under it
+# (the stem and layers 1-3 1.37-1.42 of its norm, layer4 0.78-0.91, the heads
+# 0.007-0.07, printed by this phase).
+TOL_PAR_CHANGE = 2e-2
+PAR_CONTINUOUS = {"SimT": ("loss_seg_p", "loss_seg_y", "convex", "volume"),
+                  "warmup": ("loss_seg1", "loss_seg2")}
+PAR_COUNTS = {"SimT": {"loss_core_fwd": 1, "loss_core_bwd": 1,  # launches a step
+                       "conv3x3_fwd": 2 * N_CONV2 + N_CONV2_L34,
+                       "conv3x3_wgrad": N_CONV2_L34},
+              "warmup": {"conv3x3_fwd": 2 * N_CONV2, "conv3x3_wgrad": N_CONV2}}
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def par_setup(tmp: str, stage: str, argv=()):
+    """The full-width config (global batch 2, ``argv``'s mesh flags), seeded models and
+    state of ``stage`` on the current card, through the CLIs' own calls; and the
+    ``PAR_STEPS`` global batches (the same on every rank and in the reference)."""
+    if stage == "SimT":
+        cfg = train_simt.build_config(train_simt.build_parser().parse_args(
+            ["--preset", "simt_bapa_lr25", *argv]))
+        cd = os.path.join(tmp, "cd_uniform.npy")
+        np.save(cd, (np.ones(C) / C).astype(np.float32))
+        cfg = cfg.replace(simt=dataclasses.replace(cfg.simt, class_dist=cd))
+    else:
+        cfg = train_warmup.build_config(train_warmup.build_parser().parse_args(list(argv)))
+    per_rank = 1 if argv else 2
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=per_rank))
+    whole = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=2))
+    batches = train_simt.synthetic_batches(whole, PAR_STEPS, torch.device("cuda"))
+    student, teacher = loop.build_models(cfg)
+    if stage == "SimT":
+        state = create_simt_state(student, teacher, cfg,
+                                  torch.Generator().manual_seed(cfg.random_seed + 2), "cuda")
+    else:
+        state = create_warmup_state(student, cfg, "cuda")
+    return cfg, state, batches
+
+
+def _bits(state) -> torch.Tensor:
+    """Every parameter and buffer of the trained model (and the NTM / W parameters) as
+    one int32 vector: equal vectors are equal bit for bit."""
+    ts = [p.detach() for p in state.model.parameters()] + list(state.model.buffers())
+    if hasattr(state, "t1"):
+        ts += [getattr(state, k).param.detach() for k in ("t1", "t2", "w1", "w2")]
+    return torch.cat([t.contiguous().reshape(-1).view(torch.int32) for t in ts])
+
+
+def _par_rank(rank: int, port: int, tmp: str, queue) -> None:
+    """One rank of the two: 3 SimT and 3 warmup steps at batch 1 on its block of the
+    global batches, the ranks' states held equal bit for bit after every step; then
+    ``evaluate`` sharded over the images and row-split on a spatial=2 mesh."""
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = initialize_multihost(f"127.0.0.1:{port}", PAR_WORLD, rank, "cuda",
+                                   backend="gloo")
+        out = {}
+        for stage in ("SimT", "warmup"):
+            cfg, state, batches = par_setup(tmp, stage, ["--mesh-data", str(PAR_WORLD)])
+            mesh = loop.build_mesh(cfg, dev)
+            replicate_state(state, mesh)
+            step = (make_simt_step if stage == "SimT" else make_warmup_step)(cfg, mesh)
+            metrics, equal, spans, wall = [], [], {}, 0.0
+            reset_counts()
+            for i, b in enumerate(batches):
+                # The steps after the first are timed, the checks between them are not.
+                step.spans = [] if i else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, shard_batch(b, mesh))
+                torch.cuda.synchronize()
+                wall += (time.perf_counter() - t0) if i else 0.0
+                metrics.append({k: float(v) for k, v in m.items()})
+                for name, start, end in step.spans or ():
+                    spans[name] = spans.get(name, 0.0) + start.elapsed_time(end) / (
+                        PAR_STEPS - 1)
+                if rank == 0:
+                    torch.save({k: p.detach().cpu() for k, p in
+                                state.model.named_parameters() if p.requires_grad},
+                               os.path.join(tmp, f"par_{stage}_{i}.pt"))
+                mine = _bits(state)
+                theirs = mine.clone()
+                dist.broadcast(theirs, src=0)
+                same = torch.tensor([int(torch.equal(mine, theirs))], device=dev)
+                dist.all_reduce(same, op=dist.ReduceOp.MIN)
+                equal.append(bool(same.item()))
+            out[stage] = {"metrics": metrics, "equal": equal, "launches": read_counts(),
+                          "steps_per_sec": (PAR_STEPS - 1) / wall, "spans": spans}
+            del state, step
+            torch.cuda.empty_cache()
+        model = deeplab_multi(C, O, openset=True)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        kw = dict(data_root=os.path.join(tmp, "full"),
+                  val_list=os.path.join(tmp, "full", "lists", "val.txt"),
+                  gt_dir=os.path.join(tmp, "full", "label"), return_hist=True,
+                  device=dev, print_fn=lambda s: None)
+        for name, extra in (("shard", {}),
+                            ("spatial", {"mesh": make_mesh(1, PAR_WORLD, device=dev)})):
+            reset_counts()
+            _, hist = evaluate(model, **kw, **extra)
+            out[name] = {"hist": hist, "launches": read_counts()}
+        queue.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 -- reported to the parent
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def _par_reference(tmp: str) -> dict:
+    """One process at the global batch 2: the same steps from the same initialisation,
+    its metrics and each module's parameter change after every step; the same with the
+    batch's two images swapped (the reference's own spread); the unsharded
+    histogram."""
+    out = {}
+    for stage in ("SimT", "warmup"):
+        for order in ("given", "swapped"):
+            cfg, state, batches = par_setup(tmp, stage)
+            if order == "swapped":
+                batches = [{k: v.flip(0) for k, v in b.items()} for b in batches]
+            start = {k: v.detach().cpu().clone()
+                     for k, v in state.model.named_parameters()}
+            step = (make_simt_step if stage == "SimT" else make_warmup_step)(cfg)
+            metrics, changes = [], []
+            for b in batches:
+                metrics.append({k: float(v) for k, v in step(state, b).items()})
+                changes.append(_changes_by_module(state.model, start))
+            out.setdefault(stage, {"start": start, "trained": [
+                k for k, p in state.model.named_parameters() if p.requires_grad]})
+            out[stage][order] = {"metrics": metrics, "changes": changes}
+            del state, step
+            torch.cuda.empty_cache()
+    model = deeplab_multi(C, O, openset=True)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    _, out["hist"] = evaluate(model, data_root=os.path.join(tmp, "full"),
+                              val_list=os.path.join(tmp, "full", "lists", "val.txt"),
+                              gt_dir=os.path.join(tmp, "full", "label"), return_hist=True,
+                              device="cuda", print_fn=lambda s: None)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _module_errors(got: dict, want: dict) -> dict:
+    """Each module's ||got - want|| / ||want|| (``_changes_by_module``'s vectors)."""
+    return {k: float((got[k] - w).norm()) / max(float(w.norm()), 1e-30)
+            for k, w in want.items()}
+
+
+def _one_rank_cli(tmp: str) -> None:
+    """The SimT CLI for 3 steps in a one-rank NCCL group (``--coordinator``,
+    ``--num-processes 1``, ``--process-id 0``, ``--mesh-data 1``) and without those
+    flags, each a process of its own, one after the other: the CSV rows and the last
+    snapshot equal bit for bit (cuDNN set deterministic in both)."""
+    runs, logs = {}, {}
+    for name, flags in (("plain", []), ("nccl", [
+            "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+            "--process-id", "0", "--mesh-data", "1"])):
+        d = os.path.join(tmp, f"cli_{name}")
+        argv = ["--synthetic", "--input-size-target", "1024,512", "--num-steps-stop",
+                str(PAR_STEPS), "--log-every", "1", "--snapshot-dir", d, "--csv",
+                d + ".csv", *flags]
+        code = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+                "torch.backends.cudnn.benchmark = False; "
+                "from simt_tpu_torch.tools import train_simt; train_simt.main(sys.argv[1:])")
+        res = subprocess.run([sys.executable, "-c", code, *argv],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             timeout=600)
+        if res.returncode:
+            fail(f"parallel: the {name} SimT CLI exited {res.returncode}: "
+                 f"{res.stdout[-2000:]}")
+        runs[name], logs[name] = (d, None), res.stdout
+    rows = {}
+    for name, (d, _) in runs.items():
+        with open(d + ".csv") as f:  # every column but the wall-clock time
+            rows[name] = [{k: v for k, v in r.items() if k != "time"}
+                          for r in csv.DictReader(f)]
+    snaps = {name: torch.load(os.path.join(checkpoint.snapshot_path(d, PAR_STEPS),
+                                           checkpoint.FILE), map_location="cpu")
+             for name, (d, _) in runs.items()}
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}{k}.")
+        elif torch.is_tensor(tree):
+            yield prefix, tree
+
+    a, b = dict(flat(snaps["plain"])), dict(flat(snaps["nccl"]))
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    line = [s for s in logs["nccl"].splitlines() if s.startswith("process group:")]
+    print(f"parallel, one-rank NCCL group: the SimT CLI ({PAR_STEPS} steps, full width, "
+          f"512x1024 synthetic) with --coordinator/--num-processes 1/--process-id 0/"
+          f"--mesh-data 1 against the same run without them: {line}; CSV rows but "
+          f"their time {'equal' if rows['plain'] == rows['nccl'] else 'DIFFER'} "
+          f"({len(rows['nccl'])} rows); last snapshot {len(a)} tensors "
+          f"{'equal bit for bit' if same else 'DIFFER'}")
+    if (rows["plain"] != rows["nccl"] or len(rows["nccl"]) != PAR_STEPS or not same
+            or line != ["process group: rank 0 of 1 (nccl), device cuda:0"]):
+        fail("parallel: the one-rank NCCL run differs from the plain run")
+    for d, _ in runs.values():
+        shutil.rmtree(d)
+
+
+def phase_parallel(tmp: str, smi: str) -> dict:
+    """Data parallelism through ``torch.distributed``, each rank a process of its own:
+    the one-rank NCCL CLI against the plain one; two ranks sharing the card over gloo
+    (batch 1 each) against one process at batch 2 over the same global batches, 3 SimT
+    and 3 warmup steps; the sharded and the row-split evaluation."""
+    _one_rank_cli(tmp)
+    ref = _par_reference(tmp)
+    ctx = multiprocessing.get_context("spawn")
+    queue, port = ctx.Queue(), _free_port()
+    procs = [ctx.Process(target=_par_rank, args=(r, port, tmp, queue))
+             for r in range(PAR_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=900) for _ in range(PAR_WORLD))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    print(f"parallel: {PAR_WORLD} ranks over gloo on one card: {time.perf_counter() - t0:.1f}"
+          f" s from spawn to results")
+    for r, v in got.items():
+        if isinstance(v, str):
+            fail(f"parallel: rank {r} failed:\n{v}")
+    ok = True
+    worst = {}
+    for stage in ("SimT", "warmup"):
+        mine = [got[r][stage] for r in range(PAR_WORLD)]
+        want = {k: v * PAR_STEPS for k, v in PAR_COUNTS[stage].items()}
+        given = ref[stage]["given"]
+        loss_err = max(abs(m[k] - w[k]) / max(1.0, abs(w[k]))
+                       for m, w in zip(mine[0]["metrics"], given["metrics"])
+                       for k in PAR_CONTINUOUS[stage])
+        change_ok = True
+        for i in range(PAR_STEPS):
+            sd = torch.load(os.path.join(tmp, f"par_{stage}_{i}.pt"))
+            changes = {}
+            for k in ref[stage]["trained"]:  # _changes_by_module's order
+                changes.setdefault(k.split(".")[0], []).append(
+                    (sd[k] - ref[stage]["start"][k]).flatten())
+            err = _module_errors({k: torch.cat(v) for k, v in changes.items()},
+                                 given["changes"][i])
+            spread = _module_errors(ref[stage]["swapped"]["changes"][i], given["changes"][i])
+            if i == 0:
+                change_ok = all(e <= max(TOL_PAR_CHANGE, 2 * spread[m])
+                                for m, e in err.items())
+                worst[stage] = {"loss": loss_err, "change": err, "spread": spread}
+            print(f"parallel {stage} step {i}: each module's change against one process's, "
+                  "by its norm (that process with the batch's images swapped): "
+                  + ", ".join(f"{m} {e:.3e} ({spread[m]:.3e})" for m, e in err.items()))
+        equal = all(all(m["equal"]) for m in mine)
+        same_metrics = mine[0]["metrics"] == mine[1]["metrics"]
+        counts_ok = all(m["launches"] == {n: want.get(n, 0) for n in COUNTED} for m in mine)
+        print(f"parallel {stage}: {PAR_WORLD} ranks x batch 1 against one process at batch "
+              f"2, {PAR_STEPS} steps: states equal bit for bit after every step "
+              f"{[m['equal'] for m in mine]}; metrics equal across the ranks "
+              f"{same_metrics}; continuous losses within {loss_err:.3e} of max(1, |loss|) "
+              f"(limit {TOL_PAR_LOSS:g}); first step's module changes within "
+              f"max({TOL_PAR_CHANGE:g}, 2 x the swap's): {change_ok}; launches a rank "
+              f"{[m['launches'] for m in mine]} (want {want})")
+        for r, m in enumerate(mine):
+            print(f"parallel {stage} rank {r}: {m['steps_per_sec']:.3f} steps/s over "
+                  f"{PAR_STEPS - 1} steps; spans (CUDA events, ms a step) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in m["spans"].items())
+                  + f" [{smi}]; two ranks share one card: no scaling is measured")
+        ok = (ok and equal and same_metrics and counts_ok and loss_err <= TOL_PAR_LOSS
+              and change_ok)
+    for name, b1 in (("shard", 2), ("spatial", 4)):
+        for r in range(PAR_WORLD):
+            g = got[r][name]
+            same = np.array_equal(g["hist"], ref["hist"])
+            counts = g["launches"]
+            ok = ok and same and counts["multiscale_argmax_hist"] == b1
+            print(f"parallel evaluate ({name}) rank {r}: histogram equal to one "
+                  f"process's bit for bit: {same}; B1 launches {counts['multiscale_argmax_hist']}"
+                  f" (want {b1}), B6/B7 {counts['bottleneck_fwd']}/{counts['bottleneck_bwd']}")
+    if not ok:
+        fail("parallel: the ranks disagree with one process or with each other")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2401,6 +2725,9 @@ def main() -> int:
         # profiler session (--profile-dir) and its worker processes come after every
         # kernel timing of the phases above.
         phase_train_loop(tmp, smi, train)
+        # Data parallelism last of all: its ranks are processes of their own, after every
+        # profiler reading and after the train loop phase.
+        phase_parallel(tmp, smi)
 
     print(json.dumps({"kernels": [entry, aux_entry, *loss_entries, *conv_entries,
                                   *bneck_entries]}))

@@ -17,7 +17,10 @@ their shared flags (``tools/common.py``: ``train_simt``, ``train_warmup``, ``tes
 and the offline tools (``compute_iou``, ``compute_class_distribution``,
 ``compute_confusion_matrix``, ``export_torch``); the auxiliary models (Res_Deeplab,
 DeepLab-VGG, DeepLabv3, the FCDiscriminator) with the adversarial warmup
-(``train/adversarial.py``) and the teacher-posterior cache (``train/teacher_cache.py``).
+(``train/adversarial.py``) and the teacher-posterior cache (``train/teacher_cache.py``);
+data parallelism over ``torch.distributed`` ranks (``parallel/mesh.py``: global
+BatchNorm statistics, global loss and gradient reductions, per-rank loader shards,
+sharded and row-split evaluation, the ``--mesh-*`` and process-group flags).
 Entry points run on the card (``device="cuda"``) unless the caller asks for the CPU.
 """
 

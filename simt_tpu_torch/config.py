@@ -2,8 +2,8 @@
 
 The evaluation protocol's constants and the training dataclasses of both stages
 (warmup and SimT) with the named presets of the published runs. All defaults are
-documented against the reference file:line they reproduce. The JAX package's device
-mesh comes with ROADMAP A-4.
+documented against the reference file:line they reproduce, and the (data, spatial)
+mesh of the data-parallel ranks (``MeshConfig``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ class DataConfig:
     mirror: bool = True
     ignore_label: int = 255
     num_workers: int = 4
+    # Per data shard: the global batch is batch_size * MeshConfig.data_axis, so the
+    # reference's batch-1 configurations scale to data parallelism unchanged.
     batch_size: int = 1
     # Batches in flight to the card (device_prefetch) and the loader's queue depth.
     prefetch: int = 2
@@ -138,6 +140,17 @@ class SimTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (data, spatial) mesh of the ranks (the reference has no distribution; the JAX
+    package's ``MeshConfig``, simt_tpu/config.py:130-135). One rank is one process on
+    one device, so ``data_axis * spatial_axis`` must equal the process group's world
+    size (``parallel/mesh.py::make_mesh``); a single process runs 1 x 1."""
+
+    data_axis: int = 1  # data parallelism degree (batch dim)
+    spatial_axis: int = 1  # spatial (H) sharding degree: the evaluation's row split
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Top-level training configuration."""
 
@@ -145,6 +158,7 @@ class TrainConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     simt: SimTConfig = dataclasses.field(default_factory=SimTConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     num_steps: int = 250_000  # NUM_STEPS trainV2_simt.py:52
     num_steps_stop: int = 40_000  # NUM_STEPS_STOP :53 (warmup uses 150k, trainV1:52)

@@ -15,9 +15,10 @@
 Ground-truth ``*_gtFine_labelIds.png`` files are read on the host and remapped through
 ``info.json['label2train']`` (:140-144).
 
-Not in this slice: the JAX package's ``shard=`` (images across processes) and
-``mesh=`` (spatially sharded eval) wait for the parallel slice; ``evaluate`` does not
-take them. The row-sharded head that ``mesh=`` runs is ported
+Across ranks (``parallel/mesh.py``): ``shard=(index, count)`` evaluates every
+count-th image and sums the histograms over the ranks before the mIoU, so every rank
+reads the same mIoU; ``mesh=`` with a spatial axis above 1 splits each image's eval
+head by output rows over the spatial group
 (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``).
 """
 
@@ -31,25 +32,30 @@ from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import EVAL_OUT_HW, EVAL_SCALES, IMG_MEAN_BGR
 from ..data.lists import load_info
 from ..data.pipeline import Loader, SegDataset, normalize_image
 from ..device import resolve_device
 from ..ops.interp import upsample_bilinear_align_corners
-from ..ops.kernels.eval_fused import multiscale_argmax_hist
+from ..ops.kernels.eval_fused import multiscale_argmax_hist, multiscale_argmax_hist_spatial
 from ..ops.metrics import fast_hist, label_mapping, mean_iou, per_class_iu
+from ..parallel.mesh import Mesh, all_reduce_, world_size
 
 
 def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "simt",
-                 out_hw: Tuple[int, int] = EVAL_OUT_HW):
+                 out_hw: Tuple[int, int] = EVAL_OUT_HW, mesh: Optional[Mesh] = None):
     """Eval functions over a model already placed on its device, in eval mode.
 
     ``predict(image, image_640)`` -> (B, *out_hw) int64 prediction map, through the plain
     upsample + argmax (used when prediction PNGs are saved).
     ``predict_hist(image, image_640, gt, out=None)`` -> (C, C) int32 histogram through
     the fused kernel (on CUDA tensors; its plain version on CPU tensors), added into
-    ``out`` when it is given.
+    ``out`` when it is given. With a ``mesh`` whose spatial axis is above 1, every rank
+    of the spatial group counts its block of output rows and the group sums the
+    histograms (``multiscale_argmax_hist_spatial``): the whole batch's histogram on
+    each of them.
     ``hist_update(hist, pred, gt)`` -> running histogram.
     Images are (B, H, W, 3) uint8 BGR (or float32 mean-subtracted) on the model's device.
     """
@@ -89,8 +95,12 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
     @torch.inference_mode()
     def predict_hist(image, image_640, gt, out=None):
         a, b = scales(image, image_640)
-        return multiscale_argmax_hist(a, b, gt, out_hw=out_hw, num_classes=num_classes,
-                                      out=out)
+        if mesh is None or mesh.spatial_group is None:
+            return multiscale_argmax_hist(a, b, gt, out_hw=out_hw,
+                                          num_classes=num_classes, out=out)
+        hist = multiscale_argmax_hist_spatial(a, b, gt, group=mesh.spatial_group,
+                                              out_hw=out_hw, num_classes=num_classes)
+        return hist if out is None else out.add_(hist)
 
     def hist_update(hist, pred, gt):
         return hist + fast_hist(gt, pred, num_classes)
@@ -114,9 +124,21 @@ def evaluate(
     return_hist: bool = False,
     process_workers: bool = False,
     device: Union[str, torch.device] = "cuda",
+    shard: Optional[Tuple[int, int]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Run the full protocol; returns mIoU (percent, 2dp) like evaluate_cityscapes.py:162,
     or ``(miou, hist)`` with ``return_hist=True`` (hist: (C, C) float64 numpy).
+
+    ``shard=(index, count)`` evaluates every count-th image from ``index``; under an
+    initialised process group the histograms are summed over its ranks before the mIoU
+    (``mesh``'s data group), so every rank returns the global result. It defaults to
+    ``(rank, world)`` in a process group and, with a ``mesh``, to ``(data index,
+    data)``: the data axis splits the images, and the ranks of a spatial group evaluate
+    the same ones, each running the whole two-scale forward of every image and counting
+    its block of output rows (``make_eval_fn``). The JAX package H-shards that forward
+    over the spatial devices; the histogram is the same either way. With ``mesh``, the
+    prediction PNGs are written by the spatial group's first rank.
 
     ``model`` is moved to ``device`` and put in eval mode. ``device`` defaults to
     ``"cuda"`` and raises without a card; the CPU runs only when asked for, and there
@@ -135,14 +157,22 @@ def evaluate(
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    loaders = [
-        Loader(SegDataset.cityscapes_eval(data_root, val_list, crop_wh=crop_wh,
-                                          mean_bgr=IMG_MEAN_BGR, split="val"),
-               batch_size, shuffle=False, num_workers=4, drop_last=False, loop=False,
-               process_workers=process_workers)
-        for crop_wh in scales
-    ]
-    predict, predict_hist, hist_update = make_eval_fn(model, num_classes, mode, out_hw)
+    if shard is None and mesh is not None:
+        shard = (mesh.data_index, mesh.data)
+    elif shard is None and world_size() > 1:
+        shard = (dist.get_rank(), dist.get_world_size())
+    loaders = []
+    for crop_wh in scales:
+        ds = SegDataset.cityscapes_eval(data_root, val_list, crop_wh=crop_wh,
+                                        mean_bgr=IMG_MEAN_BGR, split="val")
+        if shard is not None:
+            ds.samples = ds.samples[shard[0]::shard[1]]
+        loaders.append(Loader(ds, batch_size, shuffle=False, num_workers=4,
+                              drop_last=False, loop=False,
+                              process_workers=process_workers))
+    predict, predict_hist, hist_update = make_eval_fn(model, num_classes, mode, out_hw,
+                                                      mesh)
+    writes_png = mesh is None or mesh.spatial_index == 0
     hist = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=dev)
 
     def load_gt(name: str) -> np.ndarray:
@@ -181,11 +211,16 @@ def evaluate(
             else:
                 pred = predict(image, image_640)
                 hist = hist_update(hist, pred, gt)
-                os.makedirs(save_dir, exist_ok=True)
-                pred_np = pred.cpu().numpy()
-                for i, name in enumerate(batch["name"]):
-                    save_pred_png(pred_np[i], os.path.join(save_dir, os.path.basename(name)))
+                if writes_png:
+                    os.makedirs(save_dir, exist_ok=True)
+                    pred_np = pred.cpu().numpy()
+                    for i, name in enumerate(batch["name"]):
+                        save_pred_png(pred_np[i],
+                                      os.path.join(save_dir, os.path.basename(name)))
 
+    if shard is not None and world_size() > 1:
+        # The data shards' histograms (the spatial group's ranks hold the same one).
+        all_reduce_(hist, mesh.data_group if mesh is not None else dist.group.WORLD)
     hist_np = hist.cpu().numpy().astype(np.float64)
     ious = per_class_iu(hist_np)
     for i in range(num_classes):

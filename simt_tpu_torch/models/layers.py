@@ -9,7 +9,8 @@ as the JAX package's goes through ``dilated_conv3x3_taps``; its other TPU formul
 
 BatchNorm affine parameters are frozen (``requires_grad=False``, as in the reference).
 Evaluation normalises with the running statistics; training with the batch statistics,
-updating the running ones as ``flax.linen.BatchNorm`` does (``BatchNorm2d``).
+updating the running ones as ``flax.linen.BatchNorm`` does (``BatchNorm2d``), over the
+global batch of the data-parallel ranks inside ``parallel.global_batch_stats``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import dilated_conv3x3
+from ..parallel.mesh import all_reduce_sum, batch_stats_group
+
+
+class _Moments(torch.autograd.Function):
+    """Per-channel (sum, sum of squares) of an NCHW tensor in float32, (2, C). The
+    backward keeps only the input: d/dx = g_sum + 2 x g_sq."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        xf = x.float()
+        return torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        dx = g[0, None, :, None, None] + 2.0 * x.float() * g[1, None, :, None, None]
+        return dx.to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -33,11 +52,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``m*rv_old + (1-m)*var`` exactly, with no second pass over the activations. The
     normalisation itself (batch statistics in training, running ones in eval) and the
     state_dict keys are torch's.
+
+    Inside ``parallel.global_batch_stats(group)`` (a data group of several ranks) the
+    batch statistics are the global batch's, as under the JAX package's global
+    program (``_global_forward``).
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        group = batch_stats_group()
+        if group is not None:
+            return self._global_forward(x, group)
         # torch updates a copy (autograd keeps the tensor it updated), then
         # running_var takes the rescaled increment.
         rv_torch = self.running_var.clone()
@@ -49,6 +75,30 @@ class BatchNorm2d(nn.BatchNorm2d):
             keep = (1.0 - self.momentum) * self.running_var
             self.running_var.copy_(keep + (rv_torch - keep) * ((n - 1) / n))
         return out
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Training mode over the ranks of ``group``: per-channel (sum, sum of squares,
+        count) summed across them by a differentiable all-reduce, so that autograd
+        gives the global batch's gradient (the trainable affine parameters of
+        DeepLabv3 need it); flax's variance E[x^2] - E[x]^2 over the global batch, and
+        its biased running-variance update with N the global count (decision C-d1)."""
+        c = x.shape[1]
+        local = torch.cat([_Moments.apply(x).reshape(-1),
+                           x.new_full((1,), x.numel() // c, dtype=torch.float32)])
+        tot = all_reduce_sum(local, group)
+        mean = tot[:c] / tot[2 * c]
+        var = torch.clamp(tot[c:2 * c] / tot[2 * c] - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        shift = -mean * mul
+        if self.bias is not None:
+            shift = shift + self.bias
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        return (x * mul[None, :, None, None] + shift[None, :, None, None]).to(x.dtype)
 
 
 def frozen_bn(channels: int) -> BatchNorm2d:

@@ -18,6 +18,13 @@ parts, as in the JAX package:
      teacher posterior rows at the winning anchor pixels, and the anchor and
      placeholder compositions (:374-384, :398-399).
 
+With a data ``group`` (``parallel/mesh.py``) of more than one rank, each rank holds a
+block of the global batch and ``_global_finish`` makes the finish the global batch's,
+as the JAX program's: every mean is the rank's local sum over the count summed across
+the ranks (the ranks' losses sum to the global mean; B3's cotangent is 1 / the global
+count), and the anchor is the global first-occurrence winner, its teacher rows sent
+from the rank that owns the pixel. The kernels do not change.
+
 ``upsample_ce`` is the warmup loss (trainV1_warmup.py:219-224): align-corners upsample
 of one head's stride-8 logits and the masked CE mean, streamed over output-row chunks
 each under ``torch.utils.checkpoint``. The JAX package computes it in XLA (a
@@ -26,11 +33,13 @@ checkpointed ``lax.scan``), so it is plain PyTorch on both devices here.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed import ProcessGroup
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import all_reduce_
 from .interp import _interp_matrix, upsample_bilinear_align_corners
 from .kernels.loss_fused import SimTLossCore, _row_chunks, loss_core_fwd_reference
 from .losses import _valid_and_safe
@@ -69,6 +78,7 @@ def simt_loss_block(
     lambda_seg: float,
     ignore_label: int = 255,
     chunk_rows: int = 64,
+    group: Optional[ProcessGroup] = None,
 ) -> Dict[str, torch.Tensor]:
     """All full-resolution SimT losses (trainV2_simt.py:351-409) in one streamed pass.
 
@@ -77,6 +87,11 @@ def simt_loss_block(
     pseudo label (B, H, W). Returns the scalar losses {loss_p1, loss_p2, loss_y1,
     loss_y2, place, anchor}, differentiable in x1, x2, t1m, t2m. ``chunk_rows`` is the
     CPU core's streaming chunk (any positive value; the math does not depend on it).
+
+    ``group``: the data group when this rank holds data block ``rank`` of a global
+    batch (equal blocks; None for one process). The four CE means and ``place`` are
+    then this rank's shares (they sum over the ranks to the global batch's values) and
+    ``anchor`` is the global batch's, the same on every rank.
     """
     hh, ww = label.shape[1:]
     xcat = torch.cat([x1.float(), x2.float()], dim=-1)
@@ -84,25 +99,26 @@ def simt_loss_block(
                         threshold_high=threshold_high, threshold_low=threshold_low,
                         ignore_label=ignore_label)
     if xcat.device.type == "cuda":
-        sums, _, aidx, presence = SimTLossCore.apply(
+        sums, amax, aidx, presence = SimTLossCore.apply(
             xcat.contiguous(), t1m.float().contiguous(), t2m.float().contiguous(),
             label.to(torch.int32).contiguous(), conf, num_classes,
             float(threshold_high), int(ignore_label))
     else:
-        sums, _, aidx, presence = loss_core_fwd_reference(
+        sums, amax, aidx, presence = loss_core_fwd_reference(
             xcat, label, conf, t1m.float(), t2m.float(), num_classes=num_classes,
             threshold_high=threshold_high, ignore_label=ignore_label,
             chunk_rows=chunk_rows)
-    return _finish_losses(sums, aidx, presence, teacher_prob8.float(), t1m.float(),
+    return _finish_losses(sums, amax, aidx, presence, teacher_prob8.float(), t1m.float(),
                           t2m.float(), hh=hh, ww=ww, lambda_place=lambda_place,
-                          lambda_seg=lambda_seg)
+                          lambda_seg=lambda_seg, group=group)
 
 
-def _finish_losses(sums, aidx, presence, teacher_prob8, t1m, t2m, *, hh, ww,
-                   lambda_place, lambda_seg) -> Dict[str, torch.Tensor]:
+def _finish_losses(sums, amax, aidx, presence, teacher_prob8, t1m, t2m, *, hh, ww,
+                   lambda_place, lambda_seg, group=None) -> Dict[str, torch.Tensor]:
     """Masked means of the (2, 8) accumulators, anchor teacher rows at the winning
-    pixels, and the anchor/place compositions (trainV2_simt.py:374-384, :398-399)."""
-    _, h8, w8, _ = teacher_prob8.shape
+    pixels, and the anchor/place compositions (trainV2_simt.py:374-384, :398-399);
+    over the data ``group``'s global batch when one is given (``_global_finish``)."""
+    b, h8, w8, _ = teacher_prob8.shape
     dev = teacher_prob8.device
     a_h = torch.from_numpy(_interp_matrix(h8, hh)).to(dev)
     a_w = torch.from_numpy(_interp_matrix(w8, ww)).to(dev)
@@ -116,15 +132,47 @@ def _finish_losses(sums, aidx, presence, teacher_prob8, t1m, t2m, *, hh, ww,
         z = torch.einsum("th,thwc->twc", a_h[rem // ww], teacher_prob8[bi])
         return torch.einsum("tw,twc->tc", a_w[rem % ww], z)
 
-    m = [_finish_mean(sums[h, 2 * k], sums[h, 2 * k + 1]) for h in range(2)
-         for k in range(4)]
+    counts = sums[:, 1::2]
+    if group is None:
+        rows = (teacher_rows_at(aidx[0]), teacher_rows_at(aidx[1]))
+    else:
+        counts, rows, presence = _global_finish(counts, amax, aidx, presence,
+                                                teacher_rows_at, b * hh * ww, group)
+    m = [_finish_mean(sums[h, 2 * k], counts[h, k]) for h in range(2) for k in range(4)]
     (loss_p1, known1, unk1, loss_y1, loss_p2, known2, unk2, loss_y2) = m
     place = (lambda_seg * (known1 + lambda_place * unk1)
              + known2 + lambda_place * unk2)
-    anchor = ((presence[0, :, None] * (t1m - teacher_rows_at(aidx[0])) ** 2).sum()
-              + (presence[1, :, None] * (t2m - teacher_rows_at(aidx[1])) ** 2).sum())
+    anchor = ((presence[0, :, None] * (t1m - rows[0]) ** 2).sum()
+              + (presence[1, :, None] * (t2m - rows[1]) ** 2).sum())
     return {"loss_p1": loss_p1, "loss_p2": loss_p2, "loss_y1": loss_y1,
             "loss_y2": loss_y2, "place": place, "anchor": anchor}
+
+
+def _global_finish(counts, amax, aidx, presence, teacher_rows_at, pixels: int,
+                   group: ProcessGroup):
+    """The finish's data over the group's global batch, rank ``r`` holding its pixels
+    ``[r*pixels, (r+1)*pixels)`` of the batch-major flat order, in three all-reduces:
+    MAX of the anchor maxima and the presence; MIN of each rank's candidate global index
+    (its winner where it holds the global maximum): the first occurrence wins a tie, as
+    the JAX package's argmax does, so the lowest rank; SUM of the counts and of the
+    teacher rows at the winners, each row from the rank that owns its pixel and zeros
+    elsewhere. Returns (global counts (2, 4), rows (2, C+O, C), presence (2, C+O))."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank(group)
+    total = amax.shape[1]
+    both = all_reduce_(torch.cat([amax.reshape(-1), presence.reshape(-1)]), group, "max")
+    gmax, presence = both[:2 * total].view(2, total), both[2 * total:].view(2, total)
+    lowest = torch.full_like(aidx, torch.iinfo(torch.int64).max, dtype=torch.int64)
+    cand = all_reduce_(torch.where(amax == gmax, aidx.long() + rank * pixels, lowest),
+                       group, "min")
+    own = (cand // pixels) == rank
+    local = torch.where(own, cand - rank * pixels, torch.zeros_like(cand))
+    rows = torch.stack([torch.where(own[h, :, None], teacher_rows_at(local[h]), 0.0)
+                        for h in range(2)])
+    flat = all_reduce_(torch.cat([counts.detach().reshape(-1), rows.reshape(-1)]), group)
+    return flat[:counts.numel()].view(counts.shape), flat[counts.numel():].view(
+        rows.shape), presence
 
 
 def _ce_chunk_sums(logits: torch.Tensor, a_h_c: torch.Tensor, a_w: torch.Tensor,
@@ -142,12 +190,14 @@ def _ce_chunk_sums(logits: torch.Tensor, a_h_c: torch.Tensor, a_w: torch.Tensor,
 
 
 def upsample_ce(logits: torch.Tensor, label: torch.Tensor, *, ignore_label: int = 255,
-                chunk_rows: int = 64) -> torch.Tensor:
+                chunk_rows: int = 64,
+                group: Optional[ProcessGroup] = None) -> torch.Tensor:
     """Align-corners upsample of (B, h8, w8, C) logits to the (B, H, W) label's size and
     the masked CE mean over the valid pixels (0 when none is valid), in float32
     (simt_tpu/ops/fused_losses.py:324-354). Streamed over chunks of ``chunk_rows``
     output rows (any positive value; the last chunk may be shorter), each recomputed in
-    the backward, so no (B, H, W, C) tensor is ever held."""
+    the backward, so no (B, H, W, C) tensor is ever held. With a data ``group``, this
+    rank's sum over the count summed across its ranks."""
     _, h8, w8, _ = logits.shape
     _, hh, ww = label.shape
     dev = logits.device
@@ -159,4 +209,6 @@ def upsample_ce(logits: torch.Tensor, label: torch.Tensor, *, ignore_label: int 
         s_c, n_c = checkpoint(_ce_chunk_sums, x, a_h[r0:r1], a_w, label[:, r0:r1],
                               ignore_label, use_reentrant=False)
         s, n = (s_c, n_c) if s is None else (s + s_c, n + n_c)
+    if group is not None:
+        n = all_reduce_(n.detach().clone(), group)
     return _finish_mean(s, n)

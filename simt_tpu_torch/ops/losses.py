@@ -17,13 +17,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed import ProcessGroup
+
+from ..parallel.mesh import all_reduce_
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 group: Optional[ProcessGroup] = None) -> torch.Tensor:
     """Mean of ``values`` over the float ``mask``; 0 when the mask is empty. (The
     reference's ``CrossEntropyLoss(ignore_index=255)`` gives NaN on an all-ignored
-    batch; 0 keeps the step finite, as in the JAX package.)"""
-    count = mask.sum()
+    batch; 0 keeps the step finite, as in the JAX package.) With a data ``group``, the
+    local sum over the count summed across its ranks: the ranks' results sum to the
+    global batch's mean."""
+    count = all_reduce_(mask.sum(), group)
     total = (values * mask).sum()
     return torch.where(count > 0, total / torch.clamp(count, min=1.0),
                        torch.zeros_like(total))
@@ -37,9 +43,12 @@ def _valid_and_safe(labels: torch.Tensor, ignore_label: int):
 
 def cross_entropy_2d(logits: torch.Tensor, labels: torch.Tensor, *,
                      ignore_label: int = 255,
-                     class_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     class_weight: Optional[torch.Tensor] = None,
+                     group: Optional[ProcessGroup] = None) -> torch.Tensor:
     """Masked softmax cross entropy, mean over valid pixels
-    (``CrossEntropyLoss(ignore_index=255)``, trainV2_simt.py:303)."""
+    (``CrossEntropyLoss(ignore_index=255)``, trainV2_simt.py:303). ``group``: this
+    rank's share of the mean over the data group's global batch (``_masked_mean``;
+    not with ``class_weight``)."""
     logits = logits.float()
     valid, safe = _valid_and_safe(labels, ignore_label)
     logz = torch.logsumexp(logits, dim=-1)
@@ -50,7 +59,7 @@ def cross_entropy_2d(logits: torch.Tensor, labels: torch.Tensor, *,
         # torch's weighted CE divides by the sum of the valid targets' weights.
         return (_masked_mean(nll * w, vf) * vf.sum()
                 / torch.clamp((w * vf).sum(), min=1.0))
-    return _masked_mean(nll, vf)
+    return _masked_mean(nll, vf, group)
 
 
 def nll_from_probs_2d(probs: torch.Tensor, labels: torch.Tensor, *,

@@ -2,10 +2,12 @@
 flags of every trainer and of the eval CLI, the config they build, the synthetic
 fixture and the in-loop evaluation.
 
-Every flag of the JAX tools is accepted, ``--device`` in place of ``--platform``. The
-flags of the parallel port raise when set, naming the ROADMAP item that brings them:
-``--mesh-data``, ``--mesh-spatial``, ``--coordinator``, ``--num-processes`` and
-``--process-id`` (A-4).
+Every flag of the JAX tools is accepted, ``--device`` in place of ``--platform``.
+Several ranks, one process each: every process runs the same command with
+``--coordinator host:port --num-processes N --process-id i`` (``apply_device`` joins
+the process group) and the mesh's ``--mesh-data D --mesh-spatial S``, with ``D * S =
+N``. The trainers take the data axis (``--mesh-spatial`` above 1 is ROADMAP A-4b and
+raises); ``tools/test.py`` takes both.
 """
 
 from __future__ import annotations
@@ -20,11 +22,6 @@ import torch
 
 from .. import config as config_lib
 from ..device import resolve_device
-
-# (flag attribute, ROADMAP item) of the flags whose ports come later.
-LATER = (("mesh_data", "A-4"), ("mesh_spatial", "A-4"), ("coordinator", "A-4"),
-         ("num_processes", "A-4"), ("process_id", "A-4"))
-
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--preset", type=str, default=None,
@@ -46,15 +43,17 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="accumulate gradients over N sub-batches per optimizer "
                              "step (reference ITER_SIZE, trainV2_simt.py:85-86)")
     parser.add_argument("--mesh-data", type=int, default=None,
-                        help="data-parallel degree (comes with ROADMAP A-4)")
+                        help="data-parallel degree: the global batch is --batch-size x "
+                             "this, split across the ranks")
     parser.add_argument("--mesh-spatial", type=int, default=None,
-                        help="spatial degree (comes with ROADMAP A-4)")
+                        help="spatial degree: the evaluation's eval head split by "
+                             "output rows (tools/test.py; training refuses it, A-4b)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host coordinator host:port (comes with ROADMAP A-4)")
+                        help="host:port of rank 0, where the process group meets")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="multi-host process count (comes with ROADMAP A-4)")
+                        help="ranks in the process group, one process each")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="this process's index (comes with ROADMAP A-4)")
+                        help="this process's rank")
     parser.add_argument("--input-size-target", type=str, default=None,
                         help="'W,H' crop size (reference format, e.g. '1024,512')")
     parser.add_argument("--learning-rate", type=float, default=None)
@@ -110,25 +109,31 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 def apply_device(args) -> torch.device:
     """The device the CLI runs on (raises for 'cuda' without a card), before anything
-    is built. ``--debug-nans`` turns on autograd's anomaly detection with NaN checks
-    (the counterpart of ``jax_debug_nans``)."""
+    is built. With ``--coordinator`` it joins the process group first
+    (``initialize_multihost``: NCCL on the card, gloo on the CPU) and returns this
+    rank's device. ``--debug-nans`` turns on autograd's anomaly detection with NaN
+    checks (the counterpart of ``jax_debug_nans``)."""
     dev = resolve_device(args.device)
+    n = args.num_processes or 1
+    if args.coordinator:
+        from ..parallel import initialize_multihost
+
+        import torch.distributed as dist
+
+        dev = initialize_multihost(args.coordinator, n, args.process_id or 0, dev)
+        print(f"process group: rank {dist.get_rank()} of {dist.get_world_size()} "
+              f"({dist.get_backend()}), device {dev}")
+    elif n > 1 or args.process_id:
+        raise ValueError("--num-processes and --process-id need --coordinator (host:port "
+                         "of rank 0)")
     if getattr(args, "debug_nans", False):
         torch.autograd.set_detect_anomaly(True, check_nan=True)
     return dev
 
 
-def _refuse_later(args) -> None:
-    for flag, item in LATER:
-        if getattr(args, flag, None):
-            raise ValueError(f"--{flag.replace('_', '-')} comes with ROADMAP {item}; "
-                             "the port does not have it yet")
-
-
 def build_config(args, stage: str) -> config_lib.TrainConfig:
-    """The ``TrainConfig`` of ``stage`` from the preset (or the defaults) and the flags;
-    raises for a flag of a later ROADMAP item."""
-    _refuse_later(args)
+    """The ``TrainConfig`` of ``stage`` from the preset (or the defaults) and the
+    flags."""
     cfg = config_lib.preset(args.preset) if args.preset else config_lib.TrainConfig()
     cfg = cfg.replace(stage=stage)
 
@@ -176,7 +181,12 @@ def build_config(args, stage: str) -> config_lib.TrainConfig:
     if args.source_domain:
         data = dataclasses.replace(data, source=args.source_domain)
 
-    kw = {}
+    mesh = cfg.mesh
+    for cli, field in [("mesh_data", "data_axis"), ("mesh_spatial", "spatial_axis")]:
+        if getattr(args, cli) is not None:
+            mesh = dataclasses.replace(mesh, **{field: getattr(args, cli)})
+
+    kw = {"mesh": mesh}
     for cli in ("num_steps", "num_steps_stop", "save_pred_every", "log_every",
                 "random_seed", "restore_from", "snapshot_dir"):
         if getattr(args, cli) is not None:

@@ -14,6 +14,11 @@ Takes the trainers' flags (``tools/common.py``). ``--synthetic`` writes a small 
 (two 128x64 val images) to a temporary directory and evaluates at scales 128x64 /
 160x80 into 64x128; the model keeps its full width and depth and, without
 ``--restore-from``, seeded random weights. ``--save-dir`` writes the prediction PNGs.
+
+Over N ranks (one process each: ``--coordinator host:port --num-processes N
+--process-id i``) the images are split across the ranks and their histograms summed;
+``--mesh-spatial S`` (with ``--mesh-data N/S``) splits each image's eval head by output
+rows over S ranks, each running the whole forward (``evaluate(mesh=)``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Optional, Sequence
 
 from ..eval import evaluate
 from ..train.checkpoint import load_warmstart
-from ..train.loop import build_models
+from ..train.loop import build_mesh, build_models
 from . import common
 
 
@@ -39,6 +44,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     args = parser.parse_args(argv)
     device = common.apply_device(args)
     cfg = common.build_config(args, stage=args.mode)
+    mesh = build_mesh(cfg, device) if cfg.mesh.data_axis * cfg.mesh.spatial_axis > 1 else None
 
     with tempfile.TemporaryDirectory(prefix="simt_torch_synth_") as tmp:
         paths = None
@@ -59,7 +65,8 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                         val_list=val_list, gt_dir=gt_dir, mode=args.mode,
                         process_workers=cfg.data.process_workers,
                         batch_size=cfg.data.batch_size, save_dir=args.save_dir,
-                        device=device, **(common.scaled_protocol(cfg) if paths else {}))
+                        device=device, mesh=mesh,
+                        **(common.scaled_protocol(cfg) if paths else {}))
     print("Finish Evaluation: " + time.asctime(time.localtime(time.time())))
     return miou
 

@@ -7,6 +7,10 @@ Real data, on the card:
       --val-list simt_tpu_torch/data/assets/cityscapes_list/val.txt \\
       --restore-from warmup.pth --snapshot-dir snapshots [--resume]
 
+On N ranks, one process each (global batch N x --batch-size; rank 0 at host:port):
+  python -m simt_tpu_torch.tools.train_simt ... --coordinator host:port \
+      --num-processes N --process-id i --mesh-data N
+
 On a generated fixture (8 train and 2 val images in a temporary directory):
   python -m simt_tpu_torch.tools.train_simt --synthetic --num-steps-stop 3 --save-pred-every 2
   python -m simt_tpu_torch.tools.train_simt --synthetic --num-steps-stop 3 --device cpu \\

@@ -16,7 +16,8 @@ DeepLabv2-ResNet-101 by default, ``--restore-from`` loaded after the reference's
 single-scale warmup evaluation. The preset defaults to ``warmup_bapa`` (NUM_STEPS_STOP
 150 000, trainV1_warmup.py:52). ``--adversarial`` runs the JAX CLI's adversarial loop
 instead (``train/adversarial.py``: the model with an ``FCDiscriminator``; a loss line
-every ``--log-every`` steps, no evaluation and no snapshots).
+every ``--log-every`` steps, no evaluation and no snapshots). As in the JAX tool, that
+loop runs outside ``train()`` and takes no mesh: it refuses ``--num-processes`` above 1.
 """
 
 from __future__ import annotations
@@ -92,6 +93,9 @@ def run_adversarial(cfg, device: torch.device) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Returns ``train()``'s summary (``run_adversarial``'s with ``--adversarial``)."""
     args = build_parser().parse_args(argv)
+    if args.adversarial and (args.num_processes or 1) > 1:
+        raise ValueError("--adversarial runs in a single process (no mesh, as in the JAX "
+                         "tool); drop --num-processes")
     device = common.apply_device(args)
     cfg = build_config(args)
     with tempfile.TemporaryDirectory(prefix="simt_torch_synth_") as tmp:

@@ -8,8 +8,15 @@ the early stop at ``num_steps_stop``. Unlike the reference, snapshots carry the
 optimizer and step state, so runs resume.
 
 The steps never wait for the card; the loop reads it on log steps only (the line and
-the CSV row), at an evaluation and a snapshot, and once at the end. The JAX package's
-device mesh (``cfg.mesh``, per-process loader shards) comes with ROADMAP A-4.
+the CSV row), at an evaluation and a snapshot, and once at the end.
+
+Over several ranks (``cfg.mesh``, one process each in an initialised process group;
+``parallel/mesh.py``) every rank runs this loop on its own device: the state is
+replicated from rank 0, each rank's loader decodes its block of every global batch
+(``process_shard``), the steps reduce across the ranks, the evaluation is sharded over
+them (every rank reads the same mIoU and takes the same keep/delete branch), and rank
+0 alone writes the CSV, the snapshots and deletes the previous best while the others
+wait for its saves.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..models.deeplab_single import res_deeplab
 from ..models.deeplab_vgg import deeplab_vgg
 from ..models.deeplabv3 import deeplabv3
 from ..models.resnet_multi import deeplab_multi, init_weights
+from ..parallel.mesh import Mesh, barrier, make_mesh, replicate_state, world_size
 from ..utils import MetricWriter, StepTimer, format_simt_line, format_warmup_line
 from . import checkpoint as ckpt_lib
 from .simt import create_simt_state, make_simt_step
@@ -81,6 +89,16 @@ def build_models(cfg) -> Tuple[nn.Module, Optional[nn.Module]]:
     return model, None
 
 
+def build_mesh(cfg, device: Union[str, torch.device] = "cuda") -> Optional[Mesh]:
+    """The (data, spatial) mesh of ``cfg.mesh`` over the process group's ranks, or None
+    for a single process at 1 x 1 (the reference's only mode). ``data_axis *
+    spatial_axis`` must equal the world size: one process is one rank, so a single
+    process asked for more raises (``make_mesh``)."""
+    if world_size() == 1 and cfg.mesh.data_axis * cfg.mesh.spatial_axis == 1:
+        return None
+    return make_mesh(cfg.mesh.data_axis, cfg.mesh.spatial_axis, device=device)
+
+
 def build_loader(cfg, root: Optional[str] = None, list_path: Optional[str] = None,
                  source: Optional[str] = None, batch_size: Optional[int] = None,
                  process_shard: Optional[Tuple[int, int]] = None,
@@ -91,7 +109,9 @@ def build_loader(cfg, root: Optional[str] = None, list_path: Optional[str] = Non
 
     ``device`` defaults to ``"cuda"`` and raises without a card; the CPU runs only when
     asked for. Sets the pipeline's ``USE_NATIVE`` from ``cfg.data.use_native_preproc``.
-    The JAX function's ``sharding=`` waits for ROADMAP A-4.
+    ``process_shard=(index, count)`` decodes block ``index`` of every ``count *
+    batch_size`` global batch (a rank's share; the JAX function's ``sharding=`` places
+    the same block on the rank's devices, here ``device``).
     """
     factory = {
         "cityscapes_pseudo": SegDataset.cityscapes_pseudo,  # the trained configuration
@@ -109,6 +129,24 @@ def build_loader(cfg, root: Optional[str] = None, list_path: Optional[str] = Non
                     prefetch=cfg.data.prefetch, process_workers=cfg.data.process_workers,
                     process_shard=process_shard)
     return device_prefetch(iter(loader), size=cfg.data.prefetch, device=dev)
+
+
+def _loader_shard(cfg, mesh: Optional[Mesh]) -> Dict:
+    """``build_loader``'s batch size and ``process_shard`` for this rank: the global
+    batch is ``batch_size * data_axis`` (``DataConfig.batch_size`` is per data shard)
+    and each rank decodes its ``1 / world`` block of it (the JAX loop's checks)."""
+    if mesh is None:
+        return {}
+    global_bs = cfg.data.batch_size * mesh.data
+    if global_bs % mesh.world:
+        raise ValueError(f"global batch {global_bs} not divisible by {mesh.world} "
+                         "processes")
+    if mesh.data % mesh.world:
+        raise ValueError(f"data_axis {mesh.data} must be a multiple of the process count "
+                         f"{mesh.world} (spatial shards cannot span processes in the "
+                         "input path)")
+    return {"batch_size": global_bs // mesh.world,
+            "process_shard": (mesh.rank, mesh.world)}
 
 
 def _next_batch(batch_iter: Iterator[Dict], iter_size: int, dev: torch.device) -> Dict:
@@ -173,8 +211,24 @@ def train(
     ``steps_per_sec``, ``final_metrics``, ``student``) and ``eval_seconds``, the host
     seconds of each evaluation. ``steps_per_sec`` synchronizes the card first and
     counts the loop alone, evaluations and snapshots inside it included.
+
+    Over several ranks (``cfg.mesh``; the module docstring) every rank calls it, with
+    ``device`` naming the device type (a CUDA rank runs on the current device); an
+    injected ``batch_iter`` yields this rank's block of each global batch, and the
+    in-loop ``eval_fn`` must give every rank the same mIoU (``evaluate`` shards over
+    the ranks and sums their histograms). A spatial axis above 1 raises: H-sharded
+    training is ROADMAP A-4b.
     """
     dev = resolve_device(device)
+    if cfg.mesh.spatial_axis > 1:
+        raise ValueError(
+            f"spatial_axis={cfg.mesh.spatial_axis}: H-sharded training (halo exchanges "
+            "inside the trunk's convolutions) is ROADMAP A-4b; --mesh-spatial splits the "
+            "evaluation only (tools/test.py)")
+    mesh = build_mesh(cfg, dev)
+    if mesh is not None:
+        dev = mesh.device
+    is_rank0 = mesh is None or mesh.rank == 0
     if cfg.stage == "simt" and cfg.model.arch != "deeplab_multi":
         # The reference's SimT stage drives DeeplabMulti only (trainV2_simt.py:250);
         # the warmup stage trains every arch (the JAX package's refusal and message).
@@ -192,14 +246,14 @@ def train(
             ckpt_lib.load_warmstart(teacher, cfg.restore_from)
         state = create_simt_state(student, teacher, cfg,
                                   torch.Generator().manual_seed(cfg.random_seed + 2), dev)
-        step_fn, fmt = make_simt_step(cfg), format_simt_line
+        step_fn, fmt = make_simt_step(cfg, mesh), format_simt_line
     else:
         if cfg.restore_from:
             # The warmup flavour drops the first 6 characters of every key
             # (trainV1_warmup.py:177).
             report = ckpt_lib.load_warmstart(student, cfg.restore_from, strip_prefix=6)
         state = create_warmup_state(student, cfg, dev)
-        step_fn, fmt = make_warmup_step(cfg), format_warmup_line
+        step_fn, fmt = make_warmup_step(cfg, mesh), format_warmup_line
     if cfg.restore_from:
         print_fn(f"warm-start: loaded {len(report['loaded'])} tensors from "
                  f"{cfg.restore_from} (missing {len(report['missing'])}, skipped "
@@ -210,15 +264,28 @@ def train(
         # whose checkpoints carry only the model state_dict.
         ckpt_lib.restore(state, cfg.snapshot_dir)
         print_fn(f"resumed from step {state.step}")
+    if mesh is not None:
+        replicate_state(state, mesh)
+        print_fn(f"mesh: data={mesh.data} spatial={mesh.spatial} over {mesh.world} "
+                 "devices")
 
-    writer = MetricWriter(csv_path)
+    def save(step: int) -> None:
+        """Rank 0 writes the snapshot (hidden directory, then a rename); the other
+        ranks wait until it is there."""
+        if is_rank0:
+            ckpt_lib.save(state, cfg.snapshot_dir, step)
+        if mesh is not None:
+            barrier(mesh)
+
+    # The CSV, snapshot deletion and the NTM plots are rank 0's alone.
+    writer = MetricWriter(csv_path if is_rank0 else None)
     best_miou, best_step = 0.0, 0
     stop_at = min(cfg.num_steps_stop, max_steps or cfg.num_steps_stop)
     metrics: Dict[str, torch.Tensor] = {}
     eval_seconds = []
     with contextlib.ExitStack() as stack:
         if batch_iter is None:
-            batch_iter = build_loader(cfg, device=dev)
+            batch_iter = build_loader(cfg, device=dev, **_loader_shard(cfg, mesh))
             stack.callback(batch_iter.close)  # stops the loader's workers
         if cfg.stage == "simt" and cfg.simt.cache_teacher:
             batch_iter = TeacherCache(state.teacher, mean_bgr=cfg.data.mean_bgr).wrap(
@@ -235,7 +302,8 @@ def train(
                 print_fn(fmt(i_iter, cfg.num_steps, metrics))
                 writer.write(i_iter, metrics)
 
-            if plot_ntm_every and cfg.stage == "simt" and i_iter % plot_ntm_every == 0:
+            if (plot_ntm_every and cfg.stage == "simt" and i_iter % plot_ntm_every == 0
+                    and is_rank0):
                 _plot_ntm(state, cfg, i_iter, plot_ntm_dir)
 
             if eval_fn is not None and i_iter % cfg.save_pred_every == 0 and i_iter != 0:
@@ -247,12 +315,12 @@ def train(
                 eval_seconds.append(time.perf_counter() - t0)
                 state.model.train()  # evaluate() leaves it in eval mode
                 print_fn("Finish Evaluation: " + time.asctime(time.localtime(time.time())))
-                if miou > best_miou:
-                    if best_step and cfg.snapshot_dir:
+                if miou > best_miou:  # every rank reads the same mIoU
+                    if best_step and cfg.snapshot_dir and is_rank0:
                         ckpt_lib.delete(cfg.snapshot_dir, best_step)
                     print_fn(f"Saving model with mIoU:  {miou}")
                     if cfg.snapshot_dir:
-                        ckpt_lib.save(state, cfg.snapshot_dir, i_iter)
+                        save(i_iter)
                     best_miou, best_step = miou, i_iter
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -261,7 +329,7 @@ def train(
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     if cfg.snapshot_dir:
-        ckpt_lib.save(state, cfg.snapshot_dir, stop_at)
+        save(stop_at)
     return {
         "state": state,
         "best_miou": best_miou,

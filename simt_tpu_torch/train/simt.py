@@ -18,6 +18,15 @@ One call of the step does what the reference does per iteration
     the reference's metric conventions;
   - one SGD step for the model and one Adam step each for T1 and T2.
 
+Over a data mesh of several ranks (``parallel/mesh.py``; each rank a block of the
+global batch) the step is the global batch's, as the JAX package's one program is:
+BatchNorm takes global batch statistics, the loss block global counts and the global
+anchor, and one rule reduces the gradients: what depends on the data is summed over the
+ranks, what is replicated is not. The data losses' gradients (the student's and their
+part of T1/T2's) are summed in one ``all_reduce`` (``grad_sync``) after the last
+sub-batch; the convex, volume and anchor terms and the inner W loop's T-gradients are
+the same on every rank and are added after it, once; the W updates see no data.
+
 The step never waits for the card: no ``.item()``, no branch on a tensor; the learning
 rate comes from the host-side step count and the metrics come back as 0-d tensors.
 """
@@ -35,6 +44,7 @@ from ..models import ntm as ntm_lib
 from ..ops.fused_losses import simt_loss_block
 from ..ops.losses import mse_sum, volume_loss
 from ..ops.schedules import poly_lr
+from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, sync_grads
 from .state import NTMState, SimTState, make_adam, make_model_optimizer
 
 
@@ -99,13 +109,17 @@ class SimTStep:
     the cached teacher posterior, with a leading ``iter_size`` axis when
     ``iter_size > 1``; numpy arrays or tensors.
 
+    ``mesh``: the ranks' mesh when this rank holds a data block of the global batch
+    (None: one process). The metrics are the global batch's on every rank.
+
     ``spans``: None (default) or a list to which each call appends ``(name, start,
     end)`` CUDA events around its parts (inner_w, teacher, student_forward, backward,
-    optimizer); read them after a synchronize.
+    grad_sync over several ranks, optimizer); read them after a synchronize.
     """
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.group = mesh.data_group if mesh is not None else None
         self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
 
     @contextlib.contextmanager
@@ -151,6 +165,11 @@ class SimTStep:
             if s.clear_inner_t_grads:
                 st.t1.param.grad = None
                 st.t2.param.grad = None
+            if self.group is not None:
+                # Replicated: kept out of the data gradients' sum, added back after it.
+                inner = (st.t1.param.grad, st.t2.param.grad)
+                rep = [torch.zeros_like(st.t1.param), torch.zeros_like(st.t2.param)]
+                st.t1.param.grad = st.t2.param.grad = None
             with torch.no_grad():
                 w1_mat = ntm_lib.w_forward(st.w1.param)
                 w2_mat = ntm_lib.w_forward(st.w2.param)
@@ -179,26 +198,46 @@ class SimTStep:
             # ------- student forward + composite loss (:370-424) -------
             with self._span("student_forward"):
                 t1m, t2m = ntm(st.t1.param), ntm(st.t2.param)
-                x1, x2 = st.model(x)
+                with global_batch_stats(self.group):
+                    x1, x2 = st.model(x)
                 losses = simt_loss_block(
                     x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1), teacher_prob8, label,
                     t1m, t2m, num_classes=c, open_classes=o,
                     threshold_high=s.threshold_high, threshold_low=s.threshold_low,
                     lambda_place=s.lambda_place, lambda_seg=s.lambda_seg,
-                    ignore_label=cfg.ignore_label, chunk_rows=s.loss_chunk_rows)
+                    ignore_label=cfg.ignore_label, chunk_rows=s.loss_chunk_rows,
+                    group=self.group)
                 convex = -(_sq(w1_mat @ t1m) + _sq(w2_mat @ t2m))
                 volume = _guarded_volume(t1m, t2m)
                 loss_target = (losses["loss_p2"] + losses["loss_y2"]
                                + s.lambda_seg * losses["loss_p1"]
                                + s.lambda_seg * losses["loss_y1"])
-                loss = (losses["place"] + loss_target + s.lambda_convex * convex
-                        + s.lambda_volume * volume + s.lambda_anchor * losses["anchor"])
+                data = losses["place"] + loss_target  # this rank's share
+                loss = (data + s.lambda_convex * convex + s.lambda_volume * volume
+                        + s.lambda_anchor * losses["anchor"])
             with self._span("backward"):
-                (loss / iter_size).backward()
+                if self.group is None:
+                    (loss / iter_size).backward()
+                else:
+                    replicated = (s.lambda_convex * convex + s.lambda_volume * volume
+                                  + s.lambda_anchor * losses["anchor"])
+                    for r, g in zip(rep, torch.autograd.grad(
+                            replicated / iter_size, (st.t1.param, st.t2.param),
+                            retain_graph=True)):
+                        r.add_(g)
+                    (data / iter_size).backward()
 
             m = {"loss": loss, "loss_seg_p": losses["loss_p1"] + losses["loss_p2"],
                  "loss_seg_y": losses["loss_y1"] + losses["loss_y2"], "convex": convex,
                  "volume": volume, "anchor": losses["anchor"], "place": losses["place"]}
+            if self.group is not None:
+                # The global batch's values: the data terms summed over the ranks.
+                keys = ("loss_seg_p", "loss_seg_y", "place")
+                g = all_reduce_(torch.stack([data.detach()] + [m[k].detach()
+                                                                for k in keys]), self.group)
+                m.update(zip(keys, g[1:]))
+                m["loss"] = (g[0] + s.lambda_convex * convex + s.lambda_volume * volume
+                             + s.lambda_anchor * losses["anchor"])
             for k, v in m.items():
                 v = v.detach()
                 if iter_size == 1:
@@ -208,6 +247,11 @@ class SimTStep:
                 else:
                     metrics[k] = v
 
+        if self.group is not None:
+            with self._span("grad_sync"):
+                sync_grads([*st.model.parameters(), st.t1.param, st.t2.param], self.group)
+                for ntm_state, r, g0 in zip((st.t1, st.t2), rep, inner):
+                    ntm_state.param.grad.add_(r if g0 is None else r + g0)
         with self._span("optimizer"):
             st.model_opt.step()
             st.t1.opt.step()
@@ -217,6 +261,6 @@ class SimTStep:
         return metrics
 
 
-def make_simt_step(cfg) -> SimTStep:
-    """The SimT train step for ``cfg`` (a ``TrainConfig``)."""
-    return SimTStep(cfg)
+def make_simt_step(cfg, mesh: Optional[Mesh] = None) -> SimTStep:
+    """The SimT train step for ``cfg`` (a ``TrainConfig``) on this rank of ``mesh``."""
+    return SimTStep(cfg, mesh)

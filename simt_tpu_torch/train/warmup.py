@@ -16,6 +16,11 @@ One call of the step does what the reference does per iteration
     groups (``param_label(warmup=True, arch=...)``): for DeepLabv2, 1x for the trunk
     (stem and layers 1-2 included) and 10x for the heads.
 
+Over a data mesh of several ranks (``parallel/mesh.py``) the step is the global
+batch's: BatchNorm takes global batch statistics, each CE mean is this rank's sum over
+the global count, the gradients are summed over the ranks in one ``all_reduce``
+(``grad_sync``) after the last sub-batch, and the metrics are the global values.
+
 The step never waits for the card: the metrics come back as 0-d tensors.
 """
 
@@ -31,6 +36,7 @@ from ..data.pipeline import normalize_image, normalize_label
 from ..ops.fused_losses import upsample_ce
 from ..ops.losses import cross_entropy_2d
 from ..ops.schedules import poly_lr
+from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, sync_grads
 from .state import WarmupState, make_model_optimizer
 
 
@@ -54,13 +60,17 @@ class WarmupStep:
     BGR float32 (or uint8) and ``label`` (B, H, W) integer, with a leading
     ``iter_size`` axis when ``iter_size > 1``; numpy arrays or tensors.
 
+    ``mesh``: the ranks' mesh when this rank holds a data block of the global batch
+    (None: one process). The metrics are the global batch's on every rank.
+
     ``spans``: None (default) or a list to which each call appends ``(name, start,
-    end)`` CUDA events around its parts (forward, backward, optimizer); read them after
-    a synchronize.
+    end)`` CUDA events around its parts (forward, backward, grad_sync over several
+    ranks, optimizer); read them after a synchronize.
     """
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.group = mesh.data_group if mesh is not None else None
         self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
 
     @contextlib.contextmanager
@@ -78,18 +88,19 @@ class WarmupStep:
     def _losses(self, model: nn.Module, image: torch.Tensor,
                 label: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        ignore = cfg.ignore_label
-        ys = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        ignore, group = cfg.ignore_label, self.group
+        with global_batch_stats(group):
+            ys = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
         # A single-output model (DeepLabv3) is both heads (JAX warmup.py:75-78).
         x1, x2 = ys if isinstance(ys, tuple) else (ys, ys)
         x1, x2 = x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)
         if x1.shape[1:3] == label.shape[1:]:
             # Logits already at the input's size: plain masked CE, no upsample.
-            return (cross_entropy_2d(x1, label, ignore_label=ignore),
-                    cross_entropy_2d(x2, label, ignore_label=ignore))
+            return (cross_entropy_2d(x1, label, ignore_label=ignore, group=group),
+                    cross_entropy_2d(x2, label, ignore_label=ignore, group=group))
         chunk = cfg.simt.loss_chunk_rows
-        return (upsample_ce(x1, label, ignore_label=ignore, chunk_rows=chunk),
-                upsample_ce(x2, label, ignore_label=ignore, chunk_rows=chunk))
+        return (upsample_ce(x1, label, ignore_label=ignore, chunk_rows=chunk, group=group),
+                upsample_ce(x2, label, ignore_label=ignore, chunk_rows=chunk, group=group))
 
     def __call__(self, st: WarmupState, batch: Dict) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -111,17 +122,22 @@ class WarmupStep:
             with self._span("backward"):
                 loss.backward()
             l1, l2 = l1.detach(), l2.detach()
+            if self.group is not None:  # the global batch's values
+                l1, l2 = all_reduce_(torch.stack([l1, l2]), self.group)
             if iter_size == 1:
                 l1_sum, l2_sum = l1, l2
             else:  # the metric accumulation scale of trainV1_warmup.py:229-230
                 l1_sum = l1 / iter_size if l1_sum is None else l1_sum + l1 / iter_size
                 l2_sum = l2 / iter_size if l2_sum is None else l2_sum + l2 / iter_size
+        if self.group is not None:
+            with self._span("grad_sync"):
+                sync_grads(list(st.model.parameters()), self.group)
         with self._span("optimizer"):
             st.model_opt.step()
         st.step += 1
         return {"loss_seg1": l1_sum, "loss_seg2": l2_sum, "lr": torch.tensor(lr)}
 
 
-def make_warmup_step(cfg) -> WarmupStep:
-    """The warmup train step for ``cfg`` (a ``TrainConfig``)."""
-    return WarmupStep(cfg)
+def make_warmup_step(cfg, mesh: Optional[Mesh] = None) -> WarmupStep:
+    """The warmup train step for ``cfg`` (a ``TrainConfig``) on this rank of ``mesh``."""
+    return WarmupStep(cfg, mesh)

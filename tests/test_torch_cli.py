@@ -13,8 +13,11 @@ devkit's 19):
     ``train_warmup --adversarial`` runs the adversarial loop; ``train_simt
     --cache-teacher`` feeds the step from the teacher cache; ``train_simt --model``
     other than deeplab_multi raises the JAX package's error;
-  - a flag of a later ROADMAP item (A-4: the mesh and multi-host flags) raises and
-    names the item.
+  - the mesh and process-group flags (ROADMAP A-4, ported) refused in one process where
+    they cannot hold, each naming what is missing: ``--mesh-data 2`` the processes,
+    ``--mesh-spatial 2`` A-4b in the trainers (the evaluation takes it across
+    processes), ``--num-processes`` / ``--process-id`` the coordinator, a process id
+    outside the group; tests/test_torch_multiprocess.py runs them across processes.
 """
 
 import os
@@ -70,12 +73,16 @@ def test_test_cli_saves_predictions(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh-data", "2"], "A-4"), (["--mesh-spatial", "2"], "A-4"),
-    (["--coordinator", "localhost:1"], "A-4"), (["--num-processes", "2"], "A-4"),
-    (["--process-id", "1"], "A-4")])
+    (["--mesh-data", "2"], "--num-processes"),
+    (["--mesh-spatial", "2"], ("A-4b", "A-4b", "--num-processes")),
+    (["--coordinator", "localhost:1", "--process-id", "1"], "outside 0..0"),
+    (["--num-processes", "2"], "--coordinator"),
+    (["--process-id", "1"], "--coordinator")],
+    ids=[f"flag{i}-A-4" for i in range(5)])  # A-4's flags
 def test_flags_of_later_items_raise_and_name_them(flag, item):
-    for main in (train_simt.main, train_warmup.main, test_cli.main):
-        with pytest.raises(ValueError, match=item):
+    items = item if isinstance(item, tuple) else (item,) * 3
+    for main, want in zip((train_simt.main, train_warmup.main, test_cli.main), items):
+        with pytest.raises(ValueError, match=want):
             main(["--synthetic", "--device", "cpu"] + flag)
 
 
