@@ -122,7 +122,17 @@ Phases (any failure exits non-zero before the last line is printed):
      B6/B7 none), each rank's steps/s and ``grad_sync`` span (two ranks on one card
      measure no scaling); ``evaluate`` sharded over the 4 images and row-split on a
      spatial=2 mesh, each histogram equal bit for bit to one process's, B1 launched on
-     each rank.
+     each rank;
+ 10. the spatial axis (H-sharded training), last: B2/B3 on the output bands [0, 256)
+     and [256, 512) at full width against their plain band versions and, combined,
+     against the whole call (counts, anchors, presence equal); two ranks sharing the
+     card over gloo on a (data 1, spatial 2) mesh, each holding half of every image's
+     rows: the eval-mode forward's gathered logits against one process's (relative L2
+     within five bf16 ulps), then 3 SimT and 3 warmup steps against the parallel
+     phase's one process at batch 2 with its gates (states equal bit for bit, losses
+     within 5e-3, the first step's module changes), each rank's launches B2/B3/B4/B5
+     1/1/92/26 a SimT step and B4/B5 66/33 a warmup step (all wgmma), each rank's peak
+     memory below one process's, its steps/s, spans and the rows exchange's host ms.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -165,8 +175,9 @@ from simt_tpu_torch.models import (DeeplabSingle, DeeplabVGG, DeepLabv3,  # noqa
                                    FCDiscriminator, ResNetMulti, deeplab_multi,
                                    init_weights, layers)
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
-from simt_tpu_torch.parallel import (initialize_multihost, make_mesh,  # noqa: E402
-                                     replicate_state, shard_batch)
+from simt_tpu_torch.parallel import (fetch_rows, initialize_multihost,  # noqa: E402
+                                     make_mesh, replicate_state, shard_batch,
+                                     spatial_rows)
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
@@ -2392,8 +2403,8 @@ def par_setup(tmp: str, stage: str, argv=()):
         cfg = cfg.replace(simt=dataclasses.replace(cfg.simt, class_dist=cd))
     else:
         cfg = train_warmup.build_config(train_warmup.build_parser().parse_args(list(argv)))
-    per_rank = 1 if argv else 2
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=per_rank))
+    per_shard = 2 // cfg.mesh.data_axis  # DataConfig.batch_size is per data shard
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=per_shard))
     whole = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=2))
     batches = train_simt.synthetic_batches(whole, PAR_STEPS, torch.device("cuda"))
     student, teacher = loop.build_models(cfg)
@@ -2493,12 +2504,15 @@ def _par_reference(tmp: str) -> dict:
                      for k, v in state.model.named_parameters()}
             step = (make_simt_step if stage == "SimT" else make_warmup_step)(cfg)
             metrics, changes = [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             for b in batches:
                 metrics.append({k: float(v) for k, v in step(state, b).items()})
                 changes.append(_changes_by_module(state.model, start))
             out.setdefault(stage, {"start": start, "trained": [
                 k for k, p in state.model.named_parameters() if p.requires_grad]})
-            out[stage][order] = {"metrics": metrics, "changes": changes}
+            out[stage][order] = {"metrics": metrics, "changes": changes,
+                                 "peak": torch.cuda.max_memory_allocated()}
             del state, step
             torch.cuda.empty_cache()
     model = deeplab_multi(C, O, openset=True)
@@ -2512,10 +2526,64 @@ def _par_reference(tmp: str) -> dict:
     return out
 
 
+def _against_one_process(tmp: str, tag: str, phase: str, stage: str, rank0: dict,
+                         ref: dict):
+    """Rank 0's continuous losses and each module's parameter change after every step
+    (saved as ``<tag>_<stage>_<i>.pt``) against one process at batch 2 (``ref``): (the
+    largest loss error relative to max(1, |loss|), the first step's changes within
+    max(TOL_PAR_CHANGE, 2 x the swapped batch's spread), the first step's errors)."""
+    given = ref[stage]["given"]
+    loss_err = max(abs(m[k] - w[k]) / max(1.0, abs(w[k]))
+                   for m, w in zip(rank0["metrics"], given["metrics"])
+                   for k in PAR_CONTINUOUS[stage])
+    change_ok, first = True, None
+    for i in range(PAR_STEPS):
+        sd = torch.load(os.path.join(tmp, f"{tag}_{stage}_{i}.pt"))
+        changes = {}
+        for k in ref[stage]["trained"]:  # _changes_by_module's order
+            changes.setdefault(k.split(".")[0], []).append(
+                (sd[k] - ref[stage]["start"][k]).flatten())
+        err = _module_errors({k: torch.cat(v) for k, v in changes.items()},
+                             given["changes"][i])
+        spread = _module_errors(ref[stage]["swapped"]["changes"][i], given["changes"][i])
+        if i == 0:
+            change_ok = all(e <= max(TOL_PAR_CHANGE, 2 * spread[m]) for m, e in err.items())
+            first = {"loss": loss_err, "change": err, "spread": spread}
+        print(f"{phase} {stage} step {i}: each module's change against one process's, "
+              "by its norm (that process with the batch's images swapped): "
+              + ", ".join(f"{m} {e:.3e} ({spread[m]:.3e})" for m, e in err.items()))
+    return loss_err, change_ok, first
+
+
 def _module_errors(got: dict, want: dict) -> dict:
     """Each module's ||got - want|| / ||want|| (``_changes_by_module``'s vectors)."""
     return {k: float((got[k] - w).norm()) / max(float(w.norm()), 1e-30)
             for k, w in want.items()}
+
+
+def _run_ranks(target, tmp: str, phase: str) -> dict:
+    """``target(rank, port, tmp, queue)`` in PAR_WORLD spawned processes sharing the
+    card; their results by rank (fails if a rank reported a traceback)."""
+    ctx = multiprocessing.get_context("spawn")
+    queue, port = ctx.Queue(), _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, tmp, queue))
+             for r in range(PAR_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=900) for _ in range(PAR_WORLD))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    print(f"{phase}: {PAR_WORLD} ranks over gloo on one card: "
+          f"{time.perf_counter() - t0:.1f} s from spawn to results")
+    for r, v in got.items():
+        if isinstance(v, str):
+            fail(f"{phase}: rank {r} failed:\n{v}")
+    return got
 
 
 def _one_rank_cli(tmp: str) -> None:
@@ -2574,58 +2642,21 @@ def _one_rank_cli(tmp: str) -> None:
         shutil.rmtree(d)
 
 
-def phase_parallel(tmp: str, smi: str) -> dict:
+def phase_parallel(tmp: str, smi: str, ref: dict) -> dict:
     """Data parallelism through ``torch.distributed``, each rank a process of its own:
     the one-rank NCCL CLI against the plain one; two ranks sharing the card over gloo
-    (batch 1 each) against one process at batch 2 over the same global batches, 3 SimT
-    and 3 warmup steps; the sharded and the row-split evaluation."""
+    (batch 1 each) against one process at batch 2 over the same global batches
+    (``ref``, ``_par_reference``), 3 SimT and 3 warmup steps; the sharded and the
+    row-split evaluation."""
     _one_rank_cli(tmp)
-    ref = _par_reference(tmp)
-    ctx = multiprocessing.get_context("spawn")
-    queue, port = ctx.Queue(), _free_port()
-    procs = [ctx.Process(target=_par_rank, args=(r, port, tmp, queue))
-             for r in range(PAR_WORLD)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        got = dict(queue.get(timeout=900) for _ in range(PAR_WORLD))
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    print(f"parallel: {PAR_WORLD} ranks over gloo on one card: {time.perf_counter() - t0:.1f}"
-          f" s from spawn to results")
-    for r, v in got.items():
-        if isinstance(v, str):
-            fail(f"parallel: rank {r} failed:\n{v}")
+    got = _run_ranks(_par_rank, tmp, "parallel")
     ok = True
     worst = {}
     for stage in ("SimT", "warmup"):
         mine = [got[r][stage] for r in range(PAR_WORLD)]
         want = {k: v * PAR_STEPS for k, v in PAR_COUNTS[stage].items()}
-        given = ref[stage]["given"]
-        loss_err = max(abs(m[k] - w[k]) / max(1.0, abs(w[k]))
-                       for m, w in zip(mine[0]["metrics"], given["metrics"])
-                       for k in PAR_CONTINUOUS[stage])
-        change_ok = True
-        for i in range(PAR_STEPS):
-            sd = torch.load(os.path.join(tmp, f"par_{stage}_{i}.pt"))
-            changes = {}
-            for k in ref[stage]["trained"]:  # _changes_by_module's order
-                changes.setdefault(k.split(".")[0], []).append(
-                    (sd[k] - ref[stage]["start"][k]).flatten())
-            err = _module_errors({k: torch.cat(v) for k, v in changes.items()},
-                                 given["changes"][i])
-            spread = _module_errors(ref[stage]["swapped"]["changes"][i], given["changes"][i])
-            if i == 0:
-                change_ok = all(e <= max(TOL_PAR_CHANGE, 2 * spread[m])
-                                for m, e in err.items())
-                worst[stage] = {"loss": loss_err, "change": err, "spread": spread}
-            print(f"parallel {stage} step {i}: each module's change against one process's, "
-                  "by its norm (that process with the batch's images swapped): "
-                  + ", ".join(f"{m} {e:.3e} ({spread[m]:.3e})" for m, e in err.items()))
+        loss_err, change_ok, worst[stage] = _against_one_process(tmp, "par", "parallel",
+                                                                 stage, mine[0], ref)
         equal = all(all(m["equal"]) for m in mine)
         same_metrics = mine[0]["metrics"] == mine[1]["metrics"]
         counts_ok = all(m["launches"] == {n: want.get(n, 0) for n in COUNTED} for m in mine)
@@ -2655,6 +2686,227 @@ def phase_parallel(tmp: str, smi: str) -> dict:
     if not ok:
         fail("parallel: the ranks disagree with one process or with each other")
     return worst
+
+
+# ---------------------------------------------------------------------------------
+# The spatial axis: each image's rows over the ranks (H-sharded training)
+# ---------------------------------------------------------------------------------
+
+# The ranks' gathered stride-8 logits (eval mode, bf16 autocast) against one process's,
+# by relative L2: the windows' convolutions may take other cuDNN algorithms than the
+# whole map's, so single bf16 roundings (2^-8) differ and spread through ~100 layers.
+# Five bf16 ulps.
+TOL_SPATIAL_FWD = 5 * 2.0 ** -8
+BAND_EDGES = (0, 256, 512)  # the band kernels' check: two bands of a 512-row output
+
+
+def phase_band_kernels(rng: np.random.Generator) -> dict:
+    """B2/B3 on bands [0, 256) and [256, 512) of the main path's output (xcat
+    1x65x129x68 -> 512x1024, iid labels) against their plain band versions (counts,
+    anchors, presence equal; sums, dT, dxcat at TOL_SUMS / TOL_DT / TOL_DX) and, the
+    bands combined, against the whole call (counts, anchor maxima and indices, presence
+    equal; sums, dT and dxcat summed over the bands at the same tolerances); each run
+    twice and bitwise equal."""
+    h8, w8 = TRAIN_LOGIT_HW
+    hh, ww = TRAIN_HW
+    xcat, label, conf, t1, t2 = loss_inputs(rng, batch=1, h8=h8, w8=w8, hh=hh, ww=ww)
+    g = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).cuda()
+    kw = dict(num_classes=C, threshold_high=0.8)
+    whole = loss_fused.loss_core_fwd(xcat, label, conf, t1, t2, **kw)
+    dwhole = loss_fused.loss_core_bwd(g, xcat, label, conf, t1, t2, **kw)
+    bands, dbands, ok = [], [], True
+    for r0, r1 in zip(BAND_EDGES[:-1], BAND_EDGES[1:]):
+        lb, cb = label[:, r0:r1].contiguous(), conf[:, r0:r1].contiguous()
+        bkw = dict(kw, band=(r0, hh))
+        got, again = (loss_fused.loss_core_fwd(xcat, lb, cb, t1, t2, **bkw)
+                      for _ in range(2))
+        want = loss_fused.loss_core_fwd_reference(xcat, lb, cb, t1, t2, **bkw)
+        dgot, dagain = (loss_fused.loss_core_bwd(g, xcat, lb, cb, t1, t2, **bkw)
+                        for _ in range(2))
+        dwant = loss_fused.loss_core_bwd_reference(g, xcat, lb, cb, t1, t2, **bkw)
+        torch.cuda.synchronize()
+        exact = (torch.equal(got[0][:, 1::2], want[0][:, 1::2])
+                 and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])))
+        rerun = (all(torch.equal(a, b) for a, b in zip(got, again))
+                 and all(torch.equal(a, b) for a, b in zip(dgot, dagain)))
+        sums_rel = float(((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-30)).max())
+        errs = (_rel(dgot[0], dwant[0]), _rel(dgot[1], dwant[1]), _rel(dgot[2], dwant[2]))
+        band_ok = (exact and rerun and sums_rel <= TOL_SUMS and errs[0] <= TOL_DX
+                   and max(errs[1:]) <= TOL_DT)
+        print(f"band [{r0}, {r1}) of {hh} rows, B2/B3 vs their plain band versions: "
+              f"counts/anchors/presence {'equal' if exact else 'DIFFER'}, sums rel "
+              f"{sums_rel:.3e}, dxcat {errs[0]:.3e}, dT {max(errs[1:]):.3e} of max; reruns "
+              f"{'bitwise equal' if rerun else 'DIFFER'}: {'ok' if band_ok else 'MISMATCH'}")
+        ok = ok and band_ok
+        bands.append(got)
+        dbands.append(dgot)
+    (s0, m0, i0, p0), (s1, m1, i1, p1) = bands
+    amax = torch.maximum(m0, m1)
+    aidx = torch.where(m1 > m0, i1, torch.where(m1 == m0, torch.minimum(i0, i1), i0))
+    combined = (torch.equal((s0 + s1)[:, 1::2], whole[0][:, 1::2])
+                and torch.equal(amax, whole[1]) and torch.equal(aidx, whole[2])
+                and torch.equal(torch.maximum(p0, p1), whole[3]))
+    sums_rel = float(((s0 + s1 - whole[0]).abs() / whole[0].abs().clamp(min=1e-30)).max())
+    errs = [_rel(dbands[0][i] + dbands[1][i], dwhole[i]) for i in range(3)]
+    whole_ok = (combined and sums_rel <= TOL_SUMS and errs[0] <= TOL_DX
+                and max(errs[1:]) <= TOL_DT)
+    print(f"bands {list(zip(BAND_EDGES[:-1], BAND_EDGES[1:]))} combined vs the whole call: "
+          f"counts, anchor maxima and indices, presence {'equal' if combined else 'DIFFER'}; "
+          f"sums rel {sums_rel:.3e}, dxcat {errs[0]:.3e}, dT {max(errs[1:]):.3e} of max: "
+          f"{'ok' if whole_ok else 'MISMATCH'}")
+    if not (ok and whole_ok):
+        fail("spatial: the band kernels disagree with their plain versions or the whole call")
+    return {"sums_rel": sums_rel, "dx_rel": errs[0], "dt_rel": max(errs[1:])}
+
+
+def _spatial_forward_model(dev):
+    model = deeplab_multi(C, O, openset=True)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return model.to(device=dev, memory_format=torch.channels_last).eval()
+
+
+def _spatial_forward_input(dev) -> torch.Tensor:
+    return torch.from_numpy(synthetic_batch(2, TRAIN_HW, C, seed=SEED)["image"]).to(dev)
+
+
+def _spatial_rank(rank: int, port: int, tmp: str, queue) -> None:
+    """One rank of the two on a (data 1, spatial 2) mesh, each holding half of every
+    image's rows: the eval-mode forward (its gathered logits); then 3 SimT and 3 warmup
+    steps on the global batches of the parallel phase, the ranks' states held equal bit
+    for bit after every step, with launches, spans, the exchange's host seconds and the
+    peak memory."""
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = initialize_multihost(f"127.0.0.1:{port}", PAR_WORLD, rank, "cuda",
+                                   backend="gloo")
+        mesh = make_mesh(1, PAR_WORLD, device=dev)
+        model = _spatial_forward_model(dev)
+        x = shard_batch({"image": _spatial_forward_input(dev)}, mesh)["image"]
+        with torch.no_grad(), spatial_rows(mesh, TRAIN_HW[0]):
+            logits = [y.cpu() for y in model(x.permute(0, 3, 1, 2))]
+        out = {"forward": logits}
+        del model
+        for stage in ("SimT", "warmup"):
+            cfg, state, batches = par_setup(tmp, stage, ["--mesh-spatial", str(PAR_WORLD)])
+            mesh = loop.build_mesh(cfg, dev)
+            replicate_state(state, mesh)
+            step = (make_simt_step if stage == "SimT" else make_warmup_step)(cfg, mesh)
+            metrics, equal, spans, wall, exchange = [], [], {}, 0.0, [0.0, 0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            for i, b in enumerate(batches):
+                # The steps after the first are timed, the checks between them are not.
+                step.spans = [] if i else None
+                torch.cuda.synchronize()
+                fetch_rows.seconds, fetch_rows.bytes = 0.0, 0
+                t0 = time.perf_counter()
+                m = step(state, shard_batch(b, mesh))
+                torch.cuda.synchronize()
+                if i:
+                    wall += time.perf_counter() - t0
+                    exchange[0] += fetch_rows.seconds / (PAR_STEPS - 1)
+                    exchange[1] = fetch_rows.bytes
+                metrics.append({k: float(v) for k, v in m.items()})
+                for name, start, end in step.spans or ():
+                    spans[name] = spans.get(name, 0.0) + start.elapsed_time(end) / (
+                        PAR_STEPS - 1)
+                if rank == 0:
+                    torch.save({k: p.detach().cpu() for k, p in
+                                state.model.named_parameters() if p.requires_grad},
+                               os.path.join(tmp, f"spatial_{stage}_{i}.pt"))
+                mine = _bits(state)
+                theirs = mine.clone()
+                dist.broadcast(theirs, src=0)
+                same = torch.tensor([int(torch.equal(mine, theirs))], device=dev)
+                dist.all_reduce(same, op=dist.ReduceOp.MIN)
+                equal.append(bool(same.item()))
+            out[stage] = {"metrics": metrics, "equal": equal, "launches": read_counts(),
+                          "variants": read_variants(),
+                          "steps_per_sec": (PAR_STEPS - 1) / wall, "spans": spans,
+                          "exchange_ms": exchange[0] * 1e3, "exchange_bytes": exchange[1],
+                          "peak": torch.cuda.max_memory_allocated()}
+            del state, step
+            torch.cuda.empty_cache()
+        queue.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 -- reported to the parent
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_spatial(tmp: str, smi: str, ref: dict, rng: np.random.Generator) -> dict:
+    """H-sharded training on the spatial axis (``parallel/mesh.py::spatial_rows``): the
+    band kernels at full width; two ranks sharing the card over gloo on a (data 1,
+    spatial 2) mesh, each holding half of every image's rows, against one process at
+    batch 2 (``ref``, the parallel phase's reference): the eval-mode forward's gathered
+    logits within TOL_SPATIAL_FWD, then 3 SimT and 3 warmup steps with the parallel
+    phase's gates (states equal bit for bit, losses within TOL_PAR_LOSS, the first
+    step's module changes), each rank's launches as one process's batch-1 step's, every
+    B4/B5 launch on its wgmma kernel, and each rank's peak memory below one process's."""
+    t_phase = time.perf_counter()
+    band = phase_band_kernels(rng)
+    model = _spatial_forward_model("cuda")
+    with torch.no_grad():
+        want = [y.cpu() for y in model(_spatial_forward_input("cuda").permute(0, 3, 1, 2))]
+    del model
+    torch.cuda.empty_cache()
+    got = _run_ranks(_spatial_rank, tmp, "spatial")
+    ok = True
+    fwd_err = []
+    for r in range(PAR_WORLD):
+        errs = [float((g - w).norm() / w.norm()) for g, w in zip(got[r]["forward"], want)]
+        fwd_err.append(max(errs))
+        same = all(torch.equal(a, b) for a, b in zip(got[r]["forward"], got[0]["forward"]))
+        ok = ok and same and max(errs) <= TOL_SPATIAL_FWD
+        print(f"spatial forward (eval mode, bf16, batch 2, 512x1024) rank {r}: gathered "
+              f"logits {tuple(got[r]['forward'][0].shape)} against one process's by "
+              f"relative L2: head 1 {errs[0]:.3e}, head 2 {errs[1]:.3e} (limit "
+              f"{TOL_SPATIAL_FWD:.3e}); equal to rank 0's bit for bit: {same}")
+    out = {"forward": max(fwd_err), "band": band}
+    for stage in ("SimT", "warmup"):
+        mine = [got[r][stage] for r in range(PAR_WORLD)]
+        want_counts = {k: v * PAR_STEPS for k, v in PAR_COUNTS[stage].items()}
+        loss_err, change_ok, out[stage] = _against_one_process(tmp, "spatial", "spatial",
+                                                               stage, mine[0], ref)
+        equal = all(all(m["equal"]) for m in mine)
+        same_metrics = mine[0]["metrics"] == mine[1]["metrics"]
+        counts_ok = all(m["launches"] == {n: want_counts.get(n, 0) for n in COUNTED}
+                        for m in mine)
+        wgmma = all(sum(c.values()) == c["wgmma"] for m in mine
+                    for c in m["variants"].values())
+        peak_ref = ref[stage]["given"]["peak"]
+        lower = all(m["peak"] < peak_ref for m in mine)
+        print(f"spatial {stage}: {PAR_WORLD} ranks x half of every image's rows against "
+              f"one process at batch 2, {PAR_STEPS} steps: states equal bit for bit after "
+              f"every step {[m['equal'] for m in mine]}; metrics equal across the ranks "
+              f"{same_metrics}; continuous losses within {loss_err:.3e} of max(1, |loss|) "
+              f"(limit {TOL_PAR_LOSS:g}); first step's module changes within "
+              f"max({TOL_PAR_CHANGE:g}, 2 x the swap's): {change_ok}; launches a rank "
+              f"{[m['launches'] for m in mine]} (want {want_counts}); B4/B5 all wgmma "
+              f"{wgmma}; peak memory a rank "
+              f"{[round(m['peak'] / 2**30, 3) for m in mine]} GiB against one process's "
+              f"{peak_ref / 2**30:.3f} GiB: lower {lower}")
+        for r, m in enumerate(mine):
+            print(f"spatial {stage} rank {r}: {m['steps_per_sec']:.3f} steps/s over "
+                  f"{PAR_STEPS - 1} steps; spans (CUDA events, ms a step) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in m["spans"].items())
+                  + f"; the rows exchange (fetch_rows and gather_rows all-reduces, host "
+                  f"ms a step, the wait for the card and the peer included) "
+                  f"{m['exchange_ms']:.3f} over {m['exchange_bytes']} bytes [{smi}]; "
+                  "two ranks share one card: no scaling is measured")
+        out[stage].update({"steps_per_sec": [m["steps_per_sec"] for m in mine],
+                           "peak": [m["peak"] for m in mine], "peak_ref": peak_ref})
+        ok = (ok and equal and same_metrics and counts_ok and wgmma and lower
+              and loss_err <= TOL_PAR_LOSS and change_ok)
+    print(f"spatial: the phase took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    if not ok:
+        fail("spatial: the ranks disagree with one process or with each other")
+    return out
 
 
 def main() -> int:
@@ -2725,9 +2977,12 @@ def main() -> int:
         # profiler session (--profile-dir) and its worker processes come after every
         # kernel timing of the phases above.
         phase_train_loop(tmp, smi, train)
-        # Data parallelism last of all: its ranks are processes of their own, after every
-        # profiler reading and after the train loop phase.
-        phase_parallel(tmp, smi)
+        # Data parallelism and the spatial axis last of all: their ranks are processes of
+        # their own, after every profiler reading and after the train loop phase. Both
+        # hold their ranks to one process at batch 2 (one reference for both).
+        ref = _par_reference(tmp)
+        phase_parallel(tmp, smi, ref)
+        phase_spatial(tmp, smi, ref, rng)
 
     print(json.dumps({"kernels": [entry, aux_entry, *loss_entries, *conv_entries,
                                   *bneck_entries]}))

@@ -147,7 +147,7 @@ class MeshConfig:
     size (``parallel/mesh.py::make_mesh``); a single process runs 1 x 1."""
 
     data_axis: int = 1  # data parallelism degree (batch dim)
-    spatial_axis: int = 1  # spatial (H) sharding degree: the evaluation's row split
+    spatial_axis: int = 1  # spatial (H) sharding degree: each image's rows split
 
 
 @dataclasses.dataclass(frozen=True)

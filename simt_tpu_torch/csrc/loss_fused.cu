@@ -52,6 +52,11 @@
 //    whose known channels are 0; a pixel is valid when its label is >= 0 and not the
 //    ignore label. NaN logits are not given torch's NaN-wins argmax semantics.
 //
+// A band: the schedule may cover only the output rows [r_base, r_base + HB) of the image
+// (one rank's share on the spatial axis); label and conf then hold just those rows, the
+// taps and xcat stay the whole image's, and anchor indices stay full-image indices. The
+// whole image is the band [0, H).
+//
 // The per-pixel logits of a head live in registers, so C+O is a template parameter
 // (instantiated for 6, 8 and 34; the wrapper rejects others).
 //
@@ -291,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 2) loss_fwd_kernel(
     float* __restrict__ partials, unsigned long long* __restrict__ keys,
     int* __restrict__ presence, int* __restrict__ ticket, float* __restrict__ sums,
     float* __restrict__ amax, int* __restrict__ aidx, float* __restrict__ pres, int h8,
-    int w8, int H, int W, int C, float th, int ignore) {
+    int w8, int H, int W, int r_base, int HB, int C, float th, int ignore) {
   constexpr int CAT = 2 * TOT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned long long* sh_keys = reinterpret_cast<unsigned long long*>(smem_raw);  // CAT
@@ -329,9 +334,11 @@ __global__ void __launch_bounds__(kThreads, 2) loss_fwd_kernel(
     __syncthreads();  // the previous row's readers of zs are done
     h_step<CAT>(xb, tb, r, w8, bk.jlo, nj, zs);
     __syncthreads();
+    // The full image's flat index (the anchor's) and the band's (label, conf).
     const size_t at = (static_cast<size_t>(bk.b) * H + r) * W + col.c;
-    const int y = label[at];
-    const int cf = conf[at];
+    const size_t in_band = (static_cast<size_t>(bk.b) * HB + (r - r_base)) * W + col.c;
+    const int y = label[in_band];
+    const int cf = conf[in_band];
     Head<TOT> h;
     head_pixel(zs, col.lo, col.hi, col.u0, col.u1, head * TOT, C, th, ignore, h);
     const int pseudo2 = __shfl_sync(kFull, h.pseudo, lane | 1);
@@ -471,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 2) loss_bwd_kernel(
     const int* __restrict__ row_blk, float* __restrict__ part,
     float* __restrict__ dt_part, float* __restrict__ dt_grp, int* __restrict__ tickets,
     float* __restrict__ dx, float* __restrict__ dt, int batch, int h8, int w8, int H,
-    int W, int C, float th, int ignore, int jmax, int kmax, int maxc) {
+    int W, int r_base, int HB, int C, float th, int ignore, int jmax, int kmax, int maxc) {
   constexpr int CAT = 2 * TOT;
   constexpr int DP = CAT + 1;  // odd row stride of the cotangent tile: no bank conflicts
   const int TC = CAT * C;      // both heads' dT
@@ -532,9 +539,9 @@ __global__ void __launch_bounds__(kThreads, 2) loss_bwd_kernel(
     __syncthreads();  // the previous row's readers of zs and dp are done
     h_step<CAT>(xb, tb, r, w8, bk.jlo, nj, zs);
     __syncthreads();
-    const size_t at = (static_cast<size_t>(bk.b) * H + r) * W + col.c;
-    const int y = label[at];
-    const int cf = conf[at];
+    const size_t in_band = (static_cast<size_t>(bk.b) * HB + (r - r_base)) * W + col.c;
+    const int y = label[in_band];
+    const int cf = conf[in_band];
     Head<TOT> h;
     head_pixel(zs, col.lo, col.hi, col.u0, col.u1, head * TOT, C, th, ignore, h);
     const int pseudo2 = __shfl_sync(kFull, h.pseudo, lane | 1);
@@ -761,14 +768,14 @@ int launch_fwd(const float* xcat, const int* label, const unsigned char* conf,
                const float* t1, const float* t2, const int* taps_i, const float* taps_f,
                const int* sched, int n_blocks, int jmax, float* partials,
                unsigned long long* keys, int* presence, int* ticket, float* sums,
-               float* amax, int* aidx, float* pres, int h8, int w8, int H, int W, int C,
-               float th, int ignore, cudaStream_t stream) {
+               float* amax, int* aidx, float* pres, int h8, int w8, int H, int W,
+               int r_base, int HB, int C, float th, int ignore, cudaStream_t stream) {
   const size_t smem = fwd_smem<TOT>(C, jmax);
   cudaError_t e = allow_smem(loss_fwd_kernel<TOT>, smem);
   if (e != cudaSuccess) return e;
   loss_fwd_kernel<TOT><<<n_blocks, kThreads, smem, stream>>>(
       xcat, label, conf, t1, t2, taps_i, taps_f, sched, partials, keys, presence, ticket,
-      sums, amax, aidx, pres, h8, w8, H, W, C, th, ignore);
+      sums, amax, aidx, pres, h8, w8, H, W, r_base, HB, C, th, ignore);
   return cudaGetLastError();
 }
 
@@ -778,14 +785,15 @@ int launch_bwd(const float* g, const float* xcat, const int* label,
                const int* taps_i, const float* taps_f, const int* sched, int n_blocks,
                const int* row_off, const int* row_blk, int jmax, int kmax, int maxc,
                float* part, float* dt_part, float* dt_grp, int* tickets, float* dx,
-               float* dt, int batch, int h8, int w8, int H, int W, int C, float th,
-               int ignore, cudaStream_t stream) {
+               float* dt, int batch, int h8, int w8, int H, int W, int r_base, int HB,
+               int C, float th, int ignore, cudaStream_t stream) {
   const size_t smem = bwd_smem<TOT>(C, w8, jmax, kmax, maxc);
   cudaError_t e = allow_smem(loss_bwd_kernel<TOT>, smem);
   if (e != cudaSuccess) return e;
   loss_bwd_kernel<TOT><<<n_blocks, kThreads, smem, stream>>>(
       g, xcat, label, conf, t1, t2, taps_i, taps_f, sched, row_off, row_blk, part, dt_part,
-      dt_grp, tickets, dx, dt, batch, h8, w8, H, W, C, th, ignore, jmax, kmax, maxc);
+      dt_grp, tickets, dx, dt, batch, h8, w8, H, W, r_base, HB, C, th, ignore, jmax, kmax,
+      maxc);
   return cudaGetLastError();
 }
 
@@ -794,23 +802,25 @@ int launch_bwd(const float* g, const float* xcat, const int* label,
 extern "C" {
 
 // Forward of the loss core: one launch of n_blocks blocks of the schedule `sched`
-// (n_blocks x 10 int32). partials: n_blocks*16 floats of scratch; keys (2*TOT uint64),
-// presence (2*TOT int32) and ticket (1 int32) zero, and left zero. Outputs: sums (2, 8),
-// amax / aidx / pres (2, TOT). Returns cudaGetLastError() after the launch (0 on
-// success), cudaErrorInvalidValue for a C+O it is not compiled for.
+// (n_blocks x 10 int32) over the output rows [r_base, r_base + HB) of an H x W image:
+// label and conf hold those HB rows (B, HB, W); anchor indices are the full image's.
+// partials: n_blocks*16 floats of scratch; keys (2*TOT uint64), presence (2*TOT int32)
+// and ticket (1 int32) zero, and left zero. Outputs: sums (2, 8), amax / aidx / pres
+// (2, TOT). Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for a C+O it is not compiled for.
 int simt_loss_core_fwd(const float* xcat, const int* label, const unsigned char* conf,
                        const float* t1, const float* t2, const int* taps_i,
                        const float* taps_f, const int* sched, int n_blocks, int jmax,
                        float* partials, unsigned long long* keys, int* presence,
                        int* ticket, float* sums, float* amax, int* aidx, float* pres,
-                       int h8, int w8, int H, int W, int C, int TOT, float th, int ignore,
-                       void* stream) {
+                       int h8, int w8, int H, int W, int r_base, int HB, int C, int TOT,
+                       float th, int ignore, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIMT_FWD(N)                                                                    \
   case N:                                                                              \
     return launch_fwd<N>(xcat, label, conf, t1, t2, taps_i, taps_f, sched, n_blocks,   \
                          jmax, partials, keys, presence, ticket, sums, amax, aidx, pres, \
-                         h8, w8, H, W, C, th, ignore, s);
+                         h8, w8, H, W, r_base, HB, C, th, ignore, s);
   switch (TOT) {
     SIMT_FWD(6)
     SIMT_FWD(8)
@@ -821,7 +831,8 @@ int simt_loss_core_fwd(const float* xcat, const int* label, const unsigned char*
 #undef SIMT_FWD
 }
 
-// Backward of the loss core for the cotangent g (2, 8) of the sums: one launch of the
+// Backward of the loss core for the cotangent g (2, 8) of the sums over the band of
+// output rows [r_base, r_base + HB) (as the forward): one launch of the
 // schedule's n_blocks blocks; row_off (batch*h8 + 1) / row_blk list each source row's
 // contributing blocks in ascending order (at most maxc a row). part (the schedule's
 // partial floats),
@@ -834,15 +845,16 @@ int simt_loss_core_bwd(const float* g, const float* xcat, const int* label,
                        int n_blocks, const int* row_off, const int* row_blk, int jmax,
                        int kmax, int maxc, float* part, float* dt_part, float* dt_grp,
                        int* tickets,
-                       float* dx, float* dt, int batch, int h8, int w8, int H, int W, int C,
-                       int TOT, float th, int ignore, void* stream) {
+                       float* dx, float* dt, int batch, int h8, int w8, int H, int W,
+                       int r_base, int HB, int C, int TOT, float th, int ignore,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIMT_BWD(N)                                                                     \
   case N:                                                                               \
     return launch_bwd<N>(g, xcat, label, conf, t1, t2, taps_i, taps_f, sched, n_blocks, \
                          row_off, row_blk, jmax, kmax, maxc, part, dt_part, dt_grp,     \
                          tickets,                                                       \
-                         dx, dt, batch, h8, w8, H, W, C, th, ignore, s);
+                         dx, dt, batch, h8, w8, H, W, r_base, HB, C, th, ignore, s);
   switch (TOT) {
     SIMT_BWD(6)
     SIMT_BWD(8)

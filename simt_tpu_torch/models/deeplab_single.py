@@ -6,7 +6,8 @@ on the port's own op, kernels B4/B5 on a card) with ONE classifier, ``layer5``, 
 layer4 features, whose ASPP sums all four branches (deeplab.py:112-116 returns outside
 the loop, unlike the multi-head quirk). ``forward`` returns the logits twice, ``(x,
 x)`` (deeplab.py:166-177), as float32 NCHW at stride 8. The reference uses it as an
-alternative eval model (evaluate_cityscapes.py:12).
+alternative eval model (evaluate_cityscapes.py:12). Inside ``parallel.spatial_rows`` it
+runs on this rank's rows and returns the gathered logits, as ``ResNetMulti`` does.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import ClassifierModule, frozen_bn, max_pool_ceil, res_stage
+from ..parallel.mesh import gather_rows, row_sharding
+from .layers import (ClassifierModule, aspp_rows, frozen_bn, max_pool_ceil, res_stage,
+                     stage_rows, stem_rows)
 
 
 class DeeplabSingle(nn.Module):
@@ -35,12 +38,19 @@ class DeeplabSingle(nn.Module):
         self.layer5 = ClassifierModule(2048, num_classes, effective_branches=4)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows = row_sharding()
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-            out = self.layer5(x)
-        out = out.float()
+            if rows is None:
+                x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+                x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+                out = self.layer5(x)
+            else:
+                x, h = stem_rows(self, x, rows)
+                for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+                    x, h = stage_rows(stage, x, rows, h)
+                out = aspp_rows([self.layer5], x, rows, h)
+        out = out.float() if rows is None else gather_rows(out.float(), rows, h)
         return out, out
 
 

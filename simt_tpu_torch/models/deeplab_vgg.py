@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import ClassifierModule
+from .layers import ClassifierModule, refuse_rows
 
 # (Sequential index, out channels, dilation) of every conv of the trimmed stack.
 _VGG_CONVS = (
@@ -57,6 +57,7 @@ class DeeplabVGG(nn.Module):
         self.classifier = ClassifierModule(1024, num_classes, effective_branches=2)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        refuse_rows(type(self).__name__)
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             out = self.classifier(self.features(x))

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.interp import upsample_bilinear_half_pixel
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, refuse_rows
 
 
 def _bn(channels: int) -> BatchNorm2d:
@@ -100,6 +100,7 @@ class DeepLabv3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 3, H, W) mean-subtracted BGR -> (B, C (+O), H, W) float32 logits."""
+        refuse_rows(type(self).__name__)
         h, w = x.shape[2:]
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):

@@ -10,19 +10,26 @@ as the JAX package's goes through ``dilated_conv3x3_taps``; its other TPU formul
 BatchNorm affine parameters are frozen (``requires_grad=False``, as in the reference).
 Evaluation normalises with the running statistics; training with the batch statistics,
 updating the running ones as ``flax.linen.BatchNorm`` does (``BatchNorm2d``), over the
-global batch of the data-parallel ranks inside ``parallel.global_batch_stats``.
+global batch of the ranks inside ``parallel.global_batch_stats``.
+
+Inside ``parallel.spatial_rows`` the ResNet trunk runs on this rank's rows
+(``stem_rows``, ``stage_rows``, ``aspp_rows``): every conv and pool with
+a height extent fetches its window from the other ranks (``ops/conv.py``'s ``*_rows``)
+and runs with no height padding; each layer's global height follows from the input's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import dilated_conv3x3
-from ..parallel.mesh import all_reduce_sum, batch_stats_group
+from ..ops.conv import (conv2d_rows, dilated_conv3x3, dilated_conv3x3_rows, max_pool_rows,
+                        no_rows, row_windows)
+from ..parallel.mesh import (RowSharding, all_reduce_sum, batch_stats_group, fetch_rows,
+                             row_sharding)
 
 
 class _Moments(torch.autograd.Function):
@@ -149,6 +156,24 @@ class Bottleneck(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(out + residual)
 
+    def forward_rows(self, x: torch.Tensor, rows: RowSharding,
+                     height: int) -> Tuple[torch.Tensor, int]:
+        """``forward`` on this rank's rows of an input of global ``height``: (its rows
+        of the output, the output's global height). The strided 1x1 ``conv1`` and
+        ``downsample`` of layer2's first block and the dilated 3x3 fetch their windows."""
+        s = self.conv1.stride[0]
+        out, h = conv2d_rows(x, self.conv1.weight, None, rows, height, stride=s)
+        out = self.relu(self.bn1(out))
+        out = dilated_conv3x3_rows(out, self.conv2.weight.to(out.dtype), self.dilation,
+                                   rows, h)
+        out = self.relu(self.bn2(out))
+        out = self.bn3(conv2d_rows(out, self.conv3.weight, None, rows, h)[0])
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](conv2d_rows(x, self.downsample[0].weight, None,
+                                                      rows, height, stride=s)[0])
+        return self.relu(out + residual), h
+
 
 def res_stage(inplanes: int, planes: int, blocks: int, *, stride: int,
               dilation: int) -> nn.Sequential:
@@ -188,3 +213,70 @@ class ClassifierModule(nn.Module):
         for conv in self.conv2d_list[1:self.effective_branches]:
             out = out + conv(x).float()
         return out.to(x.dtype)
+
+    @property
+    def halo(self) -> int:
+        """The most rows above or below an output row that the summed branches read."""
+        return max(c.dilation[0] for c in self.conv2d_list[:self.effective_branches])
+
+    def forward_window(self, win: torch.Tensor, halo: int) -> torch.Tensor:
+        """``forward``'s rows for a window haloed by ``halo`` (>= ``self.halo``) rows on
+        each side: each branch reads its own dilation's part of it, with no height
+        padding. An empty window gives the empty output."""
+        n = max(win.shape[2] - 2 * halo, 0)
+        out = None
+        for conv in self.conv2d_list[:self.effective_branches]:
+            d = conv.dilation[0]
+            if n:
+                y = F.conv2d(win[:, :, halo - d:halo + n + d], conv.weight, conv.bias, 1,
+                             (0, d), d)
+            else:
+                y = no_rows(win, conv.out_channels, win.shape[3], (conv.weight, conv.bias))
+            out = y.float() if out is None else out + y.float()
+        return out.to(win.dtype)
+
+
+# --------------------------------------------------------------------------------------
+# The ResNet trunk on this rank's rows (inside ``parallel.spatial_rows``)
+# --------------------------------------------------------------------------------------
+
+
+def refuse_rows(model: str) -> None:
+    """Raises inside ``parallel.spatial_rows`` for a model with no rows forward: its
+    strided 3x3s, image pooling and half-pixel upsample are not split by rows yet
+    (ROADMAP A-4c)."""
+    if row_sharding() is not None:
+        raise ValueError(f"{model} has no H-sharded forward (training over the spatial "
+                         "axis covers the ResNet-101 models; DeepLabv3 and DeepLab-VGG "
+                         "are ROADMAP A-4c)")
+
+
+def stem_rows(model: nn.Module, x: torch.Tensor,
+              rows: RowSharding) -> Tuple[torch.Tensor, int]:
+    """``model``'s stem (``conv1`` 7x7/2 pad 3, ``bn1``, ``relu``, the ceil-mode
+    ``maxpool``) on this rank's rows of an image batch of ``rows.height`` rows: (its
+    rows of the pool's output, the output's global height)."""
+    c = model.conv1
+    x, h = conv2d_rows(x, c.weight, c.bias, rows, rows.height, stride=c.stride[0],
+                       padding=c.padding[0])
+    return max_pool_rows(model.relu(model.bn1(x)), rows, h)
+
+
+def stage_rows(stage: nn.Sequential, x: torch.Tensor, rows: RowSharding,
+               height: int) -> Tuple[torch.Tensor, int]:
+    """A ``res_stage`` of bottlenecks on this rank's rows."""
+    for block in stage:
+        x, height = block.forward_rows(x, rows, height)
+    return x, height
+
+
+def aspp_rows(heads: Sequence[ClassifierModule], x: torch.Tensor, rows: RowSharding,
+              height: int) -> torch.Tensor:
+    """The ASPP heads that read ``x`` (the known head and the open one), concatenated on
+    channels, on this rank's rows: one window with the largest halo any of their
+    branches reads, fetched once for all of them."""
+    halo = max(h.halo for h in heads)
+    win = fetch_rows(x, rows, height, row_windows(rows.size, height, 3, 1, halo, halo))
+    outs = [h.forward_window(win, halo) for h in heads]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+

@@ -14,6 +14,10 @@ Input: NCHW float32, mean-subtracted BGR. Returns ``(x1, x2)`` float32 NCHW logi
 stride 8. ``dtype=torch.bfloat16`` runs the forward under autocast (bf16 convs, f32
 heads' sums), the counterpart of the JAX package's bf16 compute; ``torch.float32``
 runs it in float32.
+
+Inside ``parallel.spatial_rows`` the input is this rank's rows of the images; the trunk
+and heads run on rows (``layers.py``'s ``*_rows``) and the logits come back gathered,
+whole, on every rank of the spatial group (``parallel.gather_rows``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import ClassifierModule, frozen_bn, max_pool_ceil, res_stage
+from ..parallel.mesh import RowSharding, gather_rows, row_sharding
+from .layers import (ClassifierModule, aspp_rows, frozen_bn, max_pool_ceil, res_stage,
+                     stage_rows, stem_rows)
 
 
 class ResNetMulti(nn.Module):
@@ -57,6 +63,9 @@ class ResNetMulti(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows = row_sharding()
+        if rows is not None:
+            return self._forward_rows(x, rows)
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
@@ -65,6 +74,21 @@ class ResNetMulti(nn.Module):
             x = self.layer4(x)
             x2 = self._head(x, self.layer6, self.layer6_1)
         return x1.float(), x2.float()
+
+    def _forward_rows(self, x: torch.Tensor,
+                      rows: RowSharding) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` on this rank's rows; the logits gathered."""
+        with torch.autocast(x.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            x, h = stem_rows(self, x, rows)
+            for stage in (self.layer1, self.layer2, self.layer3):
+                x, h = stage_rows(stage, x, rows, h)
+            x1 = aspp_rows([m for m in (self.layer5, self.layer5_1) if m is not None], x,
+                           rows, h)
+            x, h = stage_rows(self.layer4, x, rows, h)
+            x2 = aspp_rows([m for m in (self.layer6, self.layer6_1) if m is not None], x,
+                           rows, h)
+        return gather_rows(x1.float(), rows, h), gather_rows(x2.float(), rows, h)
 
 
 def deeplab_multi(num_classes: int = 19, open_classes: int = 0, openset: bool = False,

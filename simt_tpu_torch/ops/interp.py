@@ -14,7 +14,7 @@ The half-pixel resize (``align_corners=False``) is DeepLabv3's in-model upsample
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +74,10 @@ def interp_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray,
     return taps
 
 
-def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Resize NHWC ``x`` to ``out_hw`` with torch ``align_corners=True`` semantics.
+def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
+                                    rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Resize NHWC ``x`` to ``out_hw`` with torch ``align_corners=True`` semantics;
+    ``rows=(r0, r1)`` gives only the output rows [r0, r1) (the rows ``A_h[r0:r1]``).
 
     Two matmuls over the interpolation matrices, H then W, in ``x``'s dtype. On the card
     a float32 matmul is IEEE float32 unless ``torch.backends.cuda.matmul.allow_tf32``
@@ -85,15 +87,16 @@ def upsample_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) ->
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
     b, h_in, w_in, c = x.shape
     h_out, w_out = out_hw
+    r0, r1 = (0, h_out) if rows is None else rows
     if (h_in, w_in) == (h_out, w_out):
-        return x
-    a_h = torch.from_numpy(_interp_matrix(h_in, h_out)).to(x.device, x.dtype)
+        return x if rows is None else x[:, r0:r1]
+    a_h = torch.from_numpy(_interp_matrix(h_in, h_out)[r0:r1]).to(x.device, x.dtype)
     a_w = torch.from_numpy(_interp_matrix(w_in, w_out)).to(x.device, x.dtype)
-    # (h_out, h_in) @ (B, h_in, w_in*C) -> (B, h_out, w_in*C)
+    # (rows, h_in) @ (B, h_in, w_in*C) -> (B, rows, w_in*C)
     y = torch.matmul(a_h, x.reshape(b, h_in, w_in * c))
-    # (w_out, w_in) @ (B*h_out, w_in, C) -> (B*h_out, w_out, C)
-    y = torch.matmul(a_w, y.reshape(b * h_out, w_in, c))
-    return y.reshape(b, h_out, w_out, c)
+    # (w_out, w_in) @ (B*rows, w_in, C) -> (B*rows, w_out, C)
+    y = torch.matmul(a_w, y.reshape(b * (r1 - r0), w_in, c))
+    return y.reshape(b, r1 - r0, w_out, c)
 
 
 def upsample_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -21,6 +21,12 @@ unk_n, y_s, y_n); anchor maxima (2, C+O) float32, anchor indices (2, C+O) int32 
 presence (2, C+O) float32, which take no gradient. The backward takes the cotangents
 of ``sums`` and returns ``dxcat``, ``dT1``, ``dT2``.
 
+A band: ``band=(r0, H)`` computes all of this over the output rows ``[r0, r0 + rows)``
+of an image of H rows, ``label`` and ``conf`` holding just those rows (one rank's share
+on the spatial axis; the anchor indices stay the whole image's). ``None`` is the whole
+image, ``(0, rows)``; the two bands' sums add up to it, and their counts, anchors and
+presence combine into its.
+
 ``loss_core_fwd`` / ``loss_core_bwd`` dispatch on the tensors' device: on the CPU they
 run ``loss_core_fwd_reference`` / ``loss_core_bwd_reference``; on a CUDA device they
 launch the kernel of ``csrc/loss_fused.cu`` once (and add one to their ``launches``) or
@@ -137,15 +143,17 @@ def _edges(n: int, parts: int) -> np.ndarray:
     return np.asarray([k * n // parts for k in range(parts + 1)])
 
 
-def _bands(batch: int, h8: int, w8: int, hh: int, splits: int, jmax: int, cat: int,
-           num_classes: int, lo_h: np.ndarray, hi_h: np.ndarray) -> int:
-    """Bands an image: at least as many as make NUM_SMS * BLOCKS_PER_SM blocks over the
-    batch, and then the fewest whose B3 block fits BLOCKS_PER_SM to an SM, else one to an
-    SM (a larger batch runs more waves of shorter bands; the target when none fits)."""
+def _bands(batch: int, h8: int, w8: int, r_lo: int, r_hi: int, splits: int, jmax: int,
+           cat: int, num_classes: int, lo_h: np.ndarray, hi_h: np.ndarray) -> int:
+    """Bands of the output rows [r_lo, r_hi) of an image: at least as many as make
+    NUM_SMS * BLOCKS_PER_SM blocks over the batch, and then the fewest whose B3 block
+    fits BLOCKS_PER_SM to an SM, else one to an SM (a larger batch runs more waves of
+    shorter bands; the target when none fits)."""
+    hh = r_hi - r_lo
     target = max(1, min(hh, round(NUM_SMS * BLOCKS_PER_SM / (batch * splits))))
 
     def smem(bands: int) -> int:
-        r = _edges(hh, bands)
+        r = r_lo + _edges(hh, bands)
         i0, i1 = lo_h[r[:-1]], hi_h[r[1:] - 1]
         cover = np.zeros(h8 + 1, np.int64)  # bands reading each source row
         np.add.at(cover, i0, 1)
@@ -162,20 +170,22 @@ def _bands(batch: int, h8: int, w8: int, hh: int, splits: int, jmax: int, cat: i
 
 @functools.lru_cache(maxsize=16)
 def schedule(batch: int, h8: int, w8: int, hh: int, ww: int, cat: int,
-             num_classes: int) -> Schedule:
+             num_classes: int, r_lo: int = 0, r_hi: int | None = None) -> Schedule:
     """Bands of contiguous output rows of one image, each split across the width into
     segments of at most PASS_PIXELS columns (one pass a row): ceil(W / 128) segments and
     as many bands as ``_bands`` gives (one wave of NUM_SMS * BLOCKS_PER_SM blocks at the
     main path's shapes; every band at least one row). Blocks in batch, band, segment
     order. A pure function of the shapes: the order in which partials are summed is
-    fixed by it."""
+    fixed by it. ``[r_lo, r_hi)`` (the whole image by default) are the output rows the
+    blocks cover; ``r_hi > r_lo``."""
+    r_hi = hh if r_hi is None else r_hi
     lo_h, hi_h, _, _ = interp_taps(h8, hh)
     lo_w, hi_w, _, _ = interp_taps(w8, ww)
     splits = -(-ww // PASS_PIXELS)
     c_edges = _edges(ww, splits)
     jmax = int((hi_w[c_edges[1:] - 1] - lo_w[c_edges[:-1]]).max()) + 1
-    r_edges = _edges(hh, _bands(batch, h8, w8, hh, splits, jmax, cat, num_classes, lo_h,
-                                hi_h))
+    r_edges = r_lo + _edges(r_hi - r_lo, _bands(batch, h8, w8, r_lo, r_hi, splits, jmax,
+                                                cat, num_classes, lo_h, hi_h))
     rows, part = [], 0
     contrib = [[] for _ in range(batch * h8)]
     for b in range(batch):
@@ -198,11 +208,11 @@ def schedule(batch: int, h8: int, w8: int, hh: int, ww: int, cat: int,
 
 @functools.lru_cache(maxsize=16)
 def device_schedule(batch: int, h8: int, w8: int, hh: int, ww: int, cat: int,
-                    num_classes: int,
+                    num_classes: int, r_lo: int, r_hi: int,
                     device: torch.device) -> Tuple[Schedule, torch.Tensor, int, int]:
     """``schedule`` and its tables on ``device`` as one int32 tensor [blocks, row_off,
     row_blk], with the element offsets of row_off and row_blk."""
-    s = schedule(batch, h8, w8, hh, ww, cat, num_classes)
+    s = schedule(batch, h8, w8, hh, ww, cat, num_classes, r_lo, r_hi)
     flat = np.concatenate([s.blocks.ravel(), s.row_off, s.row_blk]).astype(np.int32)
     off = s.blocks.size
     return s, torch.from_numpy(flat).to(device), off, off + s.row_off.size
@@ -234,12 +244,22 @@ def _upsample_rows(xcat: torch.Tensor, taps: dict, r0: int, r1: int) -> torch.Te
             + taps["w1_w"][:, None] * z[:, :, taps["hi_w"]])
 
 
-def _row_chunks(hh: int, chunk_rows: int):
-    """(r0, r1) of consecutive chunks of ``chunk_rows`` output rows; the last may be
-    shorter."""
+def _row_chunks(hh: int, chunk_rows: int, start: int = 0):
+    """(r0, r1) of consecutive chunks of ``chunk_rows`` output rows of [start, hh); the
+    last may be shorter."""
     if chunk_rows < 1:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
-    return [(r0, min(r0 + chunk_rows, hh)) for r0 in range(0, hh, chunk_rows)]
+    return [(r0, min(r0 + chunk_rows, hh)) for r0 in range(start, hh, chunk_rows)]
+
+
+def band_rows(label: torch.Tensor, band) -> Tuple[int, int, int]:
+    """(r0, r1, H): the output rows [r0, r1) that ``label`` holds of an image of H rows
+    (``band=(r0, H)``; None: the whole image)."""
+    rows = label.shape[1]
+    r0, hh = (0, rows) if band is None else (int(band[0]), int(band[1]))
+    if not 0 <= r0 <= r0 + rows <= hh:
+        raise ValueError(f"a band of {rows} rows from row {r0} does not fit {hh} rows")
+    return r0, r0 + rows, hh
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -346,7 +366,7 @@ def _chunk_forward(xcat, t1, t2, label_c, conf_c, taps, r0, r1, c, threshold_hig
 def loss_core_fwd_reference(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
                             t1: torch.Tensor, t2: torch.Tensor, *, num_classes: int,
                             threshold_high: float, ignore_label: int = 255,
-                            chunk_rows: int = 64):
+                            chunk_rows: int = 64, band=None):
     """Plain version of the forward kernel, differentiable in ``xcat``, ``t1``, ``t2``.
 
     Streams over chunks of ``chunk_rows`` output rows (any positive value; the last
@@ -354,10 +374,12 @@ def loss_core_fwd_reference(xcat: torch.Tensor, label: torch.Tensor, conf: torch
     no full-resolution intermediate, like the JAX package's checkpointed ``lax.scan``.
     The anchor carry keeps, per image, the strict-'>' running maximum over chunks in
     row order, then combines the images in batch order: the first occurrence in
-    global batch-major flat order. Returns (sums, amax, aidx, presence).
+    global batch-major flat order. ``band``: the module docstring. Returns (sums, amax,
+    aidx, presence).
     """
     b, h8, w8, _ = xcat.shape
-    hh, ww = label.shape[1:]
+    r_lo, r_hi, hh = band_rows(label, band)
+    ww = label.shape[2]
     total = t1.shape[0]
     taps = _taps(h8, w8, hh, ww, xcat.device)
     xcat = xcat.float()
@@ -365,10 +387,11 @@ def loss_core_fwd_reference(xcat: torch.Tensor, label: torch.Tensor, conf: torch
     amax = torch.full((2, b, total), -float("inf"), device=xcat.device)
     aidx = torch.zeros((2, b, total), dtype=torch.long, device=xcat.device)
     presence = torch.zeros((2, total), device=xcat.device)
-    for r0, r1 in _row_chunks(hh, chunk_rows):
+    for r0, r1 in _row_chunks(r_hi, chunk_rows, r_lo):
         s, cand = checkpoint(
-            _chunk_forward, xcat, t1, t2, label[:, r0:r1], conf[:, r0:r1], taps, r0, r1,
-            num_classes, threshold_high, ignore_label, use_reentrant=False)
+            _chunk_forward, xcat, t1, t2, label[:, r0 - r_lo:r1 - r_lo],
+            conf[:, r0 - r_lo:r1 - r_lo], taps, r0, r1, num_classes, threshold_high,
+            ignore_label, use_reentrant=False)
         sums = sums + s
         for hd, (m, i, ex) in enumerate(cand):
             better = m > amax[hd]
@@ -407,19 +430,20 @@ def _head_grad(h: dict, g: torch.Tensor, ignore: int):
     return d, sm * dq[..., None]
 
 
-def _chunk_cotangents(g_sums, xcat, label, conf, t1, t2, taps, r0, r1, c, threshold_high,
-                      ignore):
-    """Output rows [r0, r1): the per-pixel cotangents (B, rows, W, cat) of both heads'
-    upsampled logits, and per head (sm * dq (B, rows, W, C+O), label column (B, rows, W),
-    has_y (B, rows, W)), the terms whose sum over the pixels of each label is dT."""
+def _chunk_cotangents(g_sums, xcat, label_c, conf_c, t1, t2, taps, r0, r1, c,
+                      threshold_high, ignore):
+    """Output rows [r0, r1) (``label_c``, ``conf_c`` their rows): the per-pixel
+    cotangents (B, rows, W, cat) of both heads' upsampled logits, and per head (sm * dq
+    (B, rows, W, C+O), label column (B, rows, W), has_y (B, rows, W)), the terms whose
+    sum over the pixels of each label is dT."""
     total = t1.shape[0]
     z = _upsample_rows(xcat, taps, r0, r1)
     p1, p2 = z[..., :total], z[..., total:]
     pseudo2 = torch.argmax(p2, dim=-1)
-    refined = _refine(conf[:, r0:r1], pseudo2, c, ignore)
+    refined = _refine(conf_c, pseudo2, c, ignore)
     dps, dts = [], []
     for hd, (p, t) in enumerate(((p1, t1), (p2, t2))):
-        h = _head(p, torch.argmax(p, dim=-1), refined, label[:, r0:r1], t.float(), c,
+        h = _head(p, torch.argmax(p, dim=-1), refined, label_c, t.float(), c,
                   threshold_high, ignore)
         d, smdq = _head_grad(h, g_sums[hd], ignore)
         dps.append(d)
@@ -430,13 +454,14 @@ def _chunk_cotangents(g_sums, xcat, label, conf, t1, t2, taps, r0, r1, c, thresh
 def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
                             label: torch.Tensor, conf: torch.Tensor, t1: torch.Tensor,
                             t2: torch.Tensor, *, num_classes: int, threshold_high: float,
-                            ignore_label: int = 255, chunk_rows: int = 64):
+                            ignore_label: int = 255, chunk_rows: int = 64, band=None):
     """Plain version of the backward kernel: (dxcat, dT1, dT2) for the cotangent
     ``g_sums`` (2, 8) of the sums (the counts' entries are ignored: counts are
     piecewise constant). Recomputes each chunk's forward, forms the per-pixel
-    cotangents by hand and applies the transposed upsample."""
+    cotangents by hand and applies the transposed upsample. ``band`` as the forward's."""
     b, h8, w8, cat = xcat.shape
-    hh, ww = label.shape[1:]
+    r_lo, r_hi, hh = band_rows(label, band)
+    ww = label.shape[2]
     total = t1.shape[0]
     taps = _taps(h8, w8, hh, ww, xcat.device)
     xcat = xcat.float()
@@ -445,10 +470,10 @@ def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
     dts = [torch.zeros((total, num_classes), dtype=torch.float32, device=xcat.device)
            for _ in range(2)]
     with torch.no_grad():
-        for r0, r1 in _row_chunks(hh, chunk_rows):
-            dz_out, terms = _chunk_cotangents(g_sums, xcat, label, conf, t1, t2, taps, r0,
-                                              r1, num_classes, threshold_high,
-                                              ignore_label)
+        for r0, r1 in _row_chunks(r_hi, chunk_rows, r_lo):
+            dz_out, terms = _chunk_cotangents(
+                g_sums, xcat, label[:, r0 - r_lo:r1 - r_lo], conf[:, r0 - r_lo:r1 - r_lo],
+                t1, t2, taps, r0, r1, num_classes, threshold_high, ignore_label)
             for hd, (smdq, ysafe, has_y) in enumerate(terms):
                 # dT[k, y] += sm[k] * dq at each valid pixel's label column y < C.
                 keep = has_y.reshape(-1)
@@ -471,27 +496,37 @@ def loss_core_bwd_reference(g_sums: torch.Tensor, xcat: torch.Tensor,
 
 def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
                   t1: torch.Tensor, t2: torch.Tensor, *, num_classes: int,
-                  threshold_high: float, ignore_label: int = 255, chunk_rows: int = 64):
+                  threshold_high: float, ignore_label: int = 255, chunk_rows: int = 64,
+                  band=None):
     """Forward of the core: (sums (2, 8), amax (2, C+O), aidx (2, C+O) int32,
     presence (2, C+O)). ``xcat`` (B, h8, w8, 2*(C+O)) float32, ``label`` (B, H, W),
-    ``conf`` (B, H, W) uint8 teacher labels, ``t1``/``t2`` (C+O, C) float32.
+    ``conf`` (B, H, W) uint8 teacher labels, ``t1``/``t2`` (C+O, C) float32; with
+    ``band=(r0, H)``, ``label`` and ``conf`` hold the output rows [r0, r0 + rows).
 
     CPU tensors: the plain version (``chunk_rows`` is its streaming chunk). CUDA
     tensors: one launch of kernel B2 (``csrc/loss_fused.cu``), or an exception;
-    no fill or copy launches around it.
+    no fill or copy launches around it. An empty band launches nothing and returns
+    what covers no pixel (zero sums, anchor maxima -inf at index 0, no presence).
     """
-    _check(xcat, label, conf, t1, t2, num_classes)
+    _check(xcat, label, conf, t1, t2, num_classes, band)
     if xcat.device.type == "cpu":
         return loss_core_fwd_reference(
             xcat, label, conf, t1, t2, num_classes=num_classes,
             threshold_high=threshold_high, ignore_label=ignore_label,
-            chunk_rows=chunk_rows)
+            chunk_rows=chunk_rows, band=band)
     b, h8, w8, cat = xcat.shape
-    hh, ww = label.shape[1:]
+    r_lo, r_hi, hh = band_rows(label, band)
+    ww = label.shape[2]
     total = cat // 2
     dev = xcat.device
+    if r_hi == r_lo:
+        return (torch.zeros((2, 8), device=dev),
+                torch.full((2, total), -float("inf"), device=dev),
+                torch.zeros((2, total), dtype=torch.int32, device=dev),
+                torch.zeros((2, total), device=dev))
     taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
-    sched, tabs, _, _ = device_schedule(b, h8, w8, hh, ww, cat, num_classes, dev)
+    sched, tabs, _, _ = device_schedule(b, h8, w8, hh, ww, cat, num_classes, r_lo, r_hi,
+                                        dev)
     stream = _stream(dev)
     words = _words(dev, stream, _BWD_TICKETS)
     partials = torch.empty((sched.n_blocks, 16), dtype=torch.float32, device=dev)
@@ -505,7 +540,7 @@ def loss_core_fwd(xcat: torch.Tensor, label: torch.Tensor, conf: torch.Tensor,
         taps_i.data_ptr(), taps_f.data_ptr(), tabs.data_ptr(), sched.n_blocks,
         sched.jmax, partials.data_ptr(), words.data_ptr(), _word(words, _PRES_WORD),
         _word(words, _FWD_TICKET), sums.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
-        presence.data_ptr(), h8, w8, hh, ww, num_classes, total,
+        presence.data_ptr(), h8, w8, hh, ww, r_lo, r_hi - r_lo, num_classes, total,
         float(threshold_high), int(ignore_label), stream)
     _raise_on(lib, err, "loss_core_fwd")
     loss_core_fwd.launches += 1
@@ -518,25 +553,30 @@ loss_core_fwd.launches = 0
 def loss_core_bwd(g_sums: torch.Tensor, xcat: torch.Tensor, label: torch.Tensor,
                   conf: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, *,
                   num_classes: int, threshold_high: float, ignore_label: int = 255,
-                  chunk_rows: int = 64):
+                  chunk_rows: int = 64, band=None):
     """Backward of the core: (dxcat, dT1, dT2) for the cotangent ``g_sums`` (2, 8) of
     the sums. Arguments as ``loss_core_fwd``. CPU tensors: the plain version; CUDA
-    tensors: one launch of kernel B3, or an exception."""
-    _check(xcat, label, conf, t1, t2, num_classes)
+    tensors: one launch of kernel B3, or an exception (an empty band: zeros, no
+    launch)."""
+    _check(xcat, label, conf, t1, t2, num_classes, band)
     if g_sums.shape != (2, 8):
         raise ValueError(f"g_sums must be (2, 8), got {tuple(g_sums.shape)}")
     if xcat.device.type == "cpu":
         return loss_core_bwd_reference(
             g_sums, xcat, label, conf, t1, t2, num_classes=num_classes,
             threshold_high=threshold_high, ignore_label=ignore_label,
-            chunk_rows=chunk_rows)
+            chunk_rows=chunk_rows, band=band)
     b, h8, w8, cat = xcat.shape
-    hh, ww = label.shape[1:]
+    r_lo, r_hi, hh = band_rows(label, band)
+    ww = label.shape[2]
     total = cat // 2
     dev = xcat.device
+    if r_hi == r_lo:
+        zero_t = torch.zeros_like(t1)
+        return torch.zeros_like(xcat), zero_t, zero_t.clone()
     taps_i, taps_f = device_tables(h8, w8, hh, ww, dev)
     sched, tabs, off_row, off_blk = device_schedule(b, h8, w8, hh, ww, cat, num_classes,
-                                                    dev)
+                                                    r_lo, r_hi, dev)
     stream = _stream(dev)
     words = _words(dev, stream, _BWD_TICKETS + b * h8 + sched.n_groups + 1)
     g = g_sums.detach().to(device=dev, dtype=torch.float32).contiguous()
@@ -552,8 +592,8 @@ def loss_core_bwd(g_sums: torch.Tensor, xcat: torch.Tensor, label: torch.Tensor,
         t2.data_ptr(), taps_i.data_ptr(), taps_f.data_ptr(), tabs.data_ptr(),
         sched.n_blocks, _word(tabs, off_row), _word(tabs, off_blk), sched.jmax,
         sched.kmax, sched.maxc, part.data_ptr(), dt_part.data_ptr(), dt_grp.data_ptr(),
-        _word(words, _BWD_TICKETS), dx.data_ptr(), dt.data_ptr(), b, h8, w8, hh, ww,
-        num_classes, total, float(threshold_high), int(ignore_label), stream)
+        _word(words, _BWD_TICKETS), dx.data_ptr(), dt.data_ptr(), b, h8, w8, hh, ww, r_lo,
+        r_hi - r_lo, num_classes, total, float(threshold_high), int(ignore_label), stream)
     _raise_on(lib, err, "loss_core_bwd")
     loss_core_bwd.launches += 1
     return dx, dt[0], dt[1]
@@ -566,27 +606,28 @@ class SimTLossCore(torch.autograd.Function):
     """The streamed core behind one autograd node: forward ``loss_core_fwd``,
     backward ``loss_core_bwd`` (each the kernel on CUDA tensors, the plain version on
     CPU tensors). Differentiable in ``xcat``, ``t1``, ``t2``; the anchor carries take no
-    gradient."""
+    gradient. ``band`` as ``loss_core_fwd``'s."""
 
     @staticmethod
     def forward(ctx, xcat, t1, t2, label, conf, num_classes, threshold_high,
-                ignore_label):
+                ignore_label, band=None):
         out = loss_core_fwd(xcat, label, conf, t1, t2, num_classes=num_classes,
-                            threshold_high=threshold_high, ignore_label=ignore_label)
+                            threshold_high=threshold_high, ignore_label=ignore_label,
+                            band=band)
         ctx.save_for_backward(xcat, t1, t2, label, conf)
-        ctx.args = (num_classes, threshold_high, ignore_label)
+        ctx.args = (num_classes, threshold_high, ignore_label, band)
         ctx.mark_non_differentiable(*out[1:])
         return out
 
     @staticmethod
     def backward(ctx, g_sums, *_):
         xcat, t1, t2, label, conf = ctx.saved_tensors
-        num_classes, threshold_high, ignore_label = ctx.args
+        num_classes, threshold_high, ignore_label, band = ctx.args
         dx, dt1, dt2 = loss_core_bwd(g_sums, xcat, label, conf, t1, t2,
                                      num_classes=num_classes,
                                      threshold_high=threshold_high,
-                                     ignore_label=ignore_label)
-        return dx, dt1, dt2, None, None, None, None, None
+                                     ignore_label=ignore_label, band=band)
+        return dx, dt1, dt2, None, None, None, None, None, None
 
 
 # Per-pixel operation counts of the kernels' cost model (csrc/loss_fused.cu): the
@@ -673,7 +714,7 @@ def bwd_smem_bytes(sched: Schedule, w8: int, total: int, num_classes: int) -> in
     return _bwd_smem(sched.kmax, sched.jmax, sched.maxc, w8, 2 * total, num_classes)
 
 
-def _check(xcat, label, conf, t1, t2, num_classes) -> None:
+def _check(xcat, label, conf, t1, t2, num_classes, band=None) -> None:
     if xcat.dim() != 4 or label.dim() != 3 or conf.shape != label.shape:
         raise ValueError(
             f"expected (B,h8,w8,2*(C+O)) xcat, (B,H,W) label and conf, got "
@@ -703,10 +744,14 @@ def _check(xcat, label, conf, t1, t2, num_classes) -> None:
                         f"{label.dtype}/{conf.dtype}")
     if not all(t.is_contiguous() for t in (xcat, label, conf, t1, t2)):
         raise ValueError("CUDA kernel takes contiguous tensors")
-    b, hh, ww = label.shape
+    b, _, ww = label.shape
+    r_lo, r_hi, hh = band_rows(label, band)
     if b * hh * ww >= 2**31:
         raise ValueError("batch x H x W must stay below 2**31 (int32 anchor indices)")
-    sched = schedule(b, xcat.shape[1], xcat.shape[2], hh, ww, 2 * total, num_classes)
+    if r_hi == r_lo:
+        return
+    sched = schedule(b, xcat.shape[1], xcat.shape[2], hh, ww, 2 * total, num_classes,
+                     r_lo, r_hi)
     if bwd_smem_bytes(sched, xcat.shape[2], total, num_classes) > _MAX_SMEM:
         raise ValueError(f"a block of {sched.jmax} source columns x {sched.kmax} rows "
                          f"needs more than {_MAX_SMEM} bytes of shared memory")
@@ -731,10 +776,10 @@ def _raise_on(lib, err: int, name: str) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("loss_fused")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.simt_loss_core_fwd.argtypes = [p] * 8 + [i] * 2 + [p] * 8 + [i] * 6 + [f, i, p]
+    lib.simt_loss_core_fwd.argtypes = [p] * 8 + [i] * 2 + [p] * 8 + [i] * 8 + [f, i, p]
     lib.simt_loss_core_fwd.restype = i
     lib.simt_loss_core_bwd.argtypes = ([p] * 9 + [i] + [p] * 2 + [i] * 3 + [p] * 6
-                                       + [i] * 7 + [f, i, p])
+                                       + [i] * 9 + [f, i, p])
     lib.simt_loss_core_bwd.restype = i
     lib.simt_cuda_error_string.argtypes = [i]
     lib.simt_cuda_error_string.restype = ctypes.c_char_p

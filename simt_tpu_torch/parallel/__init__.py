@@ -1,5 +1,7 @@
 """Ranks over ``torch.distributed`` (counterpart of ``simt_tpu/parallel``)."""
 
-from .mesh import (DATA_AXIS, SPATIAL_AXIS, Mesh, all_reduce_, all_reduce_sum,  # noqa: F401
-                   barrier, batch_stats_group, global_batch_stats, initialize_multihost,
-                   make_mesh, replicate_state, shard_batch, sync_grads, world_size)
+from .mesh import (DATA_AXIS, SPATIAL_AXIS, Mesh, RowSharding, all_reduce_,  # noqa: F401
+                   all_reduce_sum, barrier, batch_stats_group, fetch_rows, gather_rows,
+                   global_batch_stats, initialize_multihost, make_mesh, replicate_state,
+                   row_block, row_sharding, shard_batch, shard_rows, spatial_rows,
+                   sync_grads, world_size)

@@ -11,10 +11,16 @@ one rank is one process on one device, in a process group that
     means' counts and the SimT anchor (``ops/fused_losses.py``) and the gradients
     (``sync_grads``). Each rank's loss is its local sum over the global count, so the
     global loss is the sum over the ranks and so are the gradients.
-  - ``spatial``: the evaluation's eval head splits its output rows across the spatial
-    axis (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``); each rank of
-    a spatial group runs the whole forward. Training over it (halo exchanges inside
-    the convolutions) is ROADMAP A-4b and refused.
+  - ``spatial``: every image is split by height. At each layer an activation of global
+    height H is cut into blocks of ceil(H / S) rows over the S ranks of a spatial group
+    (``row_block``; the last blocks may be shorter or empty, GSPMD's layout of an uneven
+    dimension). Inside ``spatial_rows`` the trunk's convolutions and pool fetch the rows
+    of their window that other ranks own (``fetch_rows``) and the model gathers its
+    stride-8 logits (``gather_rows``); each rank computes the loss on its band of label
+    rows, and BatchNorm, the losses' counts and the gradients reduce over every rank of
+    the mesh (``Mesh.group``). The evaluation instead splits only its eval head's output
+    rows (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``): each rank of a
+    spatial group runs the whole forward there.
 
 Only ``all_reduce`` and ``broadcast`` are used: ``gloo`` runs both on CUDA tensors too,
 so two ranks can share one card.
@@ -24,7 +30,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+import math
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -80,6 +88,16 @@ class Mesh:
     def world(self) -> int:
         return self.data * self.spatial
 
+    def rows(self, height: int) -> "RowSharding":
+        """This rank's ``RowSharding`` for images of global ``height`` (spatial > 1)."""
+        return RowSharding(self.spatial_group, self.spatial_index, self.spatial, height)
+
+    @property
+    def group(self) -> Optional[dist.ProcessGroup]:
+        """Every rank of the mesh (None for one): what the global batch's statistics,
+        counts and gradients reduce over."""
+        return dist.group.WORLD if self.world > 1 else None
+
 
 def make_mesh(data: int, spatial: int = 1, *,
               device: Union[str, torch.device] = "cuda") -> Mesh:
@@ -116,10 +134,19 @@ def make_mesh(data: int, spatial: int = 1, *,
     return Mesh(data, spatial, rank, d_idx, s_idx, data_group, spatial_group, dev)
 
 
+def row_block(height: int, index: int, size: int) -> Tuple[int, int]:
+    """Rows ``[lo, hi)`` of an axis of ``height`` rows that spatial index ``index`` of
+    ``size`` owns: blocks of ceil(height / size) rows, the last ones shorter or empty."""
+    c = -(-height // size)
+    lo = min(index * c, height)
+    return lo, min(lo + c, height)
+
+
 def shard_batch(batch: Dict, mesh: Mesh) -> Dict:
-    """This rank's block of a global batch: data index ``r`` of ``n`` takes items
-    ``[r*b, (r+1)*b)`` of every array (b = the global batch over ``n``), as the JAX
-    package's batch sharding places them; other values pass through."""
+    """This rank's block of a global batch, as the JAX package's ``P(data, spatial)``
+    places it: data index ``r`` of ``n`` takes items ``[r*b, (r+1)*b)`` of every array
+    (b = the global batch over ``n``), and ``shard_rows`` its rows; other values pass
+    through."""
     out = {}
     for k, v in batch.items():
         if getattr(v, "ndim", 0) > 0:
@@ -127,6 +154,22 @@ def shard_batch(batch: Dict, mesh: Mesh) -> Dict:
                 raise ValueError(f"{k}: batch {len(v)} not divisible by data={mesh.data}")
             b = len(v) // mesh.data
             v = v[mesh.data_index * b:(mesh.data_index + 1) * b]
+        out[k] = v
+    return shard_rows(out, mesh)
+
+
+def shard_rows(batch: Dict, mesh: Mesh) -> Dict:
+    """This rank's rows of a data block: every array of rank 2 or more is cut on its
+    height (axis 1) into ``row_block``'s block of the spatial index (``image``,
+    ``label``, ``teacher_prob8``); other values pass through. The identity at
+    spatial 1."""
+    if mesh.spatial == 1:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        if getattr(v, "ndim", 0) >= 2:
+            lo, hi = row_block(v.shape[1], mesh.spatial_index, mesh.spatial)
+            v = v[:, lo:hi]
         out[k] = v
     return out
 
@@ -264,3 +307,223 @@ def global_batch_stats(group: Optional[dist.ProcessGroup]) -> Iterator[None]:
 def batch_stats_group() -> Optional[dist.ProcessGroup]:
     """The group of ``global_batch_stats``' block, None outside one."""
     return _BATCH_STATS_GROUP
+
+
+# ---------------------------------------------------------------------------------
+# The spatial axis: rows exchanged between the ranks of a spatial group
+# ---------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSharding:
+    """This rank's place in its spatial group inside ``spatial_rows``: the group, its
+    index and size, and the global height of the images the block's forwards take."""
+
+    group: dist.ProcessGroup
+    index: int
+    size: int
+    height: int
+
+    def block(self, height: int) -> Tuple[int, int]:
+        """This rank's rows of an activation of global ``height``."""
+        return row_block(height, self.index, self.size)
+
+
+_ROWS: Optional[RowSharding] = None
+
+
+@contextlib.contextmanager
+def spatial_rows(mesh: Optional[Mesh], height: int) -> Iterator[None]:
+    """Inside the block, the models' forwards (``models/layers.py``) take this rank's
+    rows of images of global ``height`` (``row_block`` of the spatial index) and return
+    the gathered stride-8 logits; each layer's global height follows from ``height``,
+    so no collective asks for it. A mesh without a spatial axis (or None) leaves the
+    forwards as they are."""
+    global _ROWS
+    rows = mesh.rows(height) if mesh is not None and mesh.spatial > 1 else None
+    prev, _ROWS = _ROWS, rows
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def row_sharding() -> Optional[RowSharding]:
+    """The ``RowSharding`` of ``spatial_rows``' block, None outside one."""
+    return _ROWS
+
+
+def _bit_sum_(t: torch.Tensor, group: dist.ProcessGroup) -> None:
+    """All-reduce a flat contiguous buffer in which every element is written by at most
+    one rank (zero elsewhere), as integers of its width: the sum is that rank's bits
+    whatever the dtype, and gloo and NCCL run one code path for every dtype. A 2-byte
+    buffer has an even length."""
+    view = {8: torch.int64, 4: torch.int32, 2: torch.int32}[t.element_size()]
+    _timed_all_reduce(t.view(view), group)
+
+
+def _timed_all_reduce(t: torch.Tensor, group: dist.ProcessGroup) -> None:
+    """``all_reduce`` (sum) of an exchange, its host seconds and bytes added to
+    ``fetch_rows.seconds`` / ``.bytes`` (the wait for the card's queued work and for
+    the peers included: gloo copies through host memory)."""
+    t0 = time.perf_counter()
+    dist.all_reduce(t, group=group)
+    fetch_rows.seconds += time.perf_counter() - t0
+    fetch_rows.bytes += t.numel() * t.element_size()
+
+
+def _foreign_segments(height: int, size: int, windows: Sequence[Tuple[int, int]]):
+    """For each rank, the rows of its window inside ``[0, height)`` that it does not own,
+    as (a, b) segments in row order (at most one above and one below its block)."""
+    out = []
+    for r, (lo, hi) in enumerate(windows):
+        own_lo, own_hi = row_block(height, r, size)
+        a, b = max(lo, 0), min(hi, height)
+        segs = []
+        if a < b:
+            if a < own_lo:
+                segs.append((a, min(b, own_lo)))
+            if b > own_hi:
+                segs.append((max(a, own_hi), b))
+        out.append(segs)
+    return out
+
+
+def _slots(segments):
+    """The exchange buffer's layout: ``(rank, a, b, offset)`` of every foreign segment in
+    rank order, and the total rows."""
+    slots, off = [], 0
+    for r, segs in enumerate(segments):
+        for a, b in segs:
+            slots.append((r, a, b, off))
+            off += b - a
+    return slots, off
+
+
+def _flat_buffer(shape, like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A zero buffer of ``shape`` in ``like``'s dtype and device and the flat tensor
+    under it (padded to an even length for a 2-byte dtype)."""
+    n = math.prod(shape)
+    flat = torch.zeros(n + (n % 2 if like.element_size() == 2 else 0), dtype=like.dtype,
+                       device=like.device)
+    return flat[:n].view(shape), flat
+
+
+class _FetchRows(torch.autograd.Function):
+    """``fetch_rows``: forward gathers this rank's window, backward returns the window's
+    cotangent to the rows' owners (each adds what it receives to its own rows)."""
+
+    @staticmethod
+    def forward(ctx, x, rows, height, windows, fill):
+        b, c, n, w = x.shape
+        own_lo, own_hi = rows.block(height)
+        if n != own_hi - own_lo:
+            raise ValueError(f"rank {rows.index} of {rows.size} holds {n} rows of an "
+                             f"activation of height {height}; its block is "
+                             f"[{own_lo}, {own_hi})")
+        slots, total = _slots(_foreign_segments(height, rows.size, windows))
+        xv = x.permute(0, 2, 3, 1)  # NHWC: rows are contiguous in channels_last memory
+        buf = None
+        if total:
+            buf, flat = _flat_buffer((b, total, w, c), x)
+            for r, a, bb, off in slots:
+                i0, i1 = max(a, own_lo), min(bb, own_hi)
+                if r != rows.index and i0 < i1:
+                    buf[:, off + i0 - a:off + i1 - a] = xv[:, i0 - own_lo:i1 - own_lo]
+            _bit_sum_(flat, rows.group)
+        lo, hi = windows[rows.index]
+        pieces = []
+        if hi > lo:
+            if lo < 0:
+                pieces.append(x.new_full((b, min(hi, 0) - lo, w, c), fill))
+            mine = {a: (bb, off) for r, a, bb, off in slots if r == rows.index}
+            r0 = max(lo, 0)
+            while r0 < min(hi, height):
+                if r0 in mine:
+                    bb, off = mine[r0]
+                    pieces.append(buf[:, off:off + bb - r0])
+                    r0 = bb
+                else:  # this rank's own rows
+                    r1 = min(hi, own_hi)
+                    pieces.append(xv[:, r0 - own_lo:r1 - own_lo])
+                    r0 = r1
+            if hi > height:
+                pieces.append(x.new_full((b, hi - max(lo, height), w, c), fill))
+        out = (torch.cat(pieces, dim=1) if pieces else x.new_empty((b, 0, w, c)))
+        ctx.rows, ctx.height, ctx.windows, ctx.n = rows, height, windows, n
+        return out.permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, height, windows = ctx.rows, ctx.height, ctx.windows
+        own_lo, own_hi = rows.block(height)
+        lo, hi = windows[rows.index]
+        gv = g.permute(0, 2, 3, 1)
+        b, _, w, c = gv.shape
+        slots, total = _slots(_foreign_segments(height, rows.size, windows))
+        dx = torch.zeros((b, ctx.n, w, c), device=g.device,
+                         dtype=torch.promote_types(g.dtype, torch.float32))
+        i0, i1 = max(lo, own_lo), min(hi, own_hi)
+        if i0 < i1:
+            dx[:, i0 - own_lo:i1 - own_lo] += gv[:, i0 - lo:i1 - lo]
+        if total:
+            buf, flat = _flat_buffer((b, total, w, c), g)
+            for r, a, bb, off in slots:
+                if r == rows.index:
+                    buf[:, off:off + bb - a] = gv[:, a - lo:bb - lo]
+            _bit_sum_(flat, rows.group)
+            for r, a, bb, off in slots:  # the other ranks' cotangents of my rows
+                i0, i1 = max(a, own_lo), min(bb, own_hi)
+                if r != rows.index and i0 < i1:
+                    dx[:, i0 - own_lo:i1 - own_lo] += buf[:, off + i0 - a:off + i1 - a]
+        return dx.to(g.dtype).permute(0, 3, 1, 2), None, None, None, None
+
+
+def fetch_rows(x: torch.Tensor, rows: RowSharding, height: int,
+               windows: Sequence[Tuple[int, int]], fill: float = 0.0) -> torch.Tensor:
+    """This rank's window of a row-sharded activation, differentiable.
+
+    ``x`` (B, C, n, W) holds this rank's ``rows.block(height)`` of an activation of
+    global ``height``; ``windows[r]`` is rank r's window ``[lo, hi)`` of global rows
+    (every rank passes the same list; an empty one for a rank with no output rows).
+    Returns (B, C, hi - lo, W) in ``channels_last`` memory: rows outside ``[0,
+    height)`` are ``fill`` (0 for a convolution, -inf for a max pool), the others this
+    rank's own or, for the rows other ranks own (from any of them, not only the
+    neighbours), those ranks'. Only those foreign rows cross: one all-reduce of a buffer
+    with a slot for each rank's foreign rows, written by their owners (about S times the
+    foreign rows, never a whole activation), none when no window reaches past its
+    block. The backward sends the foreign rows' cotangents back the same way and the
+    owners add them to their rows' (in float32 at least, then rounded once)."""
+    return _FetchRows.apply(x, rows, int(height), tuple(map(tuple, windows)), float(fill))
+
+
+# Host seconds and bytes of every exchange all-reduce (``fetch_rows`` and
+# ``gather_rows``, forward and backward) since they were last zeroed.
+fetch_rows.seconds = 0.0
+fetch_rows.bytes = 0
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows, height):
+        b, c, n, w = x.shape
+        lo, hi = rows.block(height)
+        full, flat = _flat_buffer((b, height, w, c), x)
+        full[:, lo:hi] = x.permute(0, 2, 3, 1)
+        _bit_sum_(flat, rows.group)
+        ctx.rows, ctx.lo, ctx.hi = rows, lo, hi
+        return full.permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        gv = g.permute(0, 2, 3, 1).contiguous()
+        _timed_all_reduce(gv, ctx.rows.group)
+        return gv[:, ctx.lo:ctx.hi].permute(0, 3, 1, 2), None, None
+
+
+def gather_rows(x: torch.Tensor, rows: RowSharding, height: int) -> torch.Tensor:
+    """The whole (B, C, height, W) tensor on every rank of the spatial group from each
+    rank's ``rows.block(height)`` (B, C, n, W), differentiable: the backward sums the
+    ranks' cotangents and keeps this rank's rows. For the small stride-8 tensors (logits,
+    the teacher posterior) the losses read whole."""
+    return _GatherRows.apply(x, rows, int(height))

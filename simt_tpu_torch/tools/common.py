@@ -6,8 +6,10 @@ Every flag of the JAX tools is accepted, ``--device`` in place of ``--platform``
 Several ranks, one process each: every process runs the same command with
 ``--coordinator host:port --num-processes N --process-id i`` (``apply_device`` joins
 the process group) and the mesh's ``--mesh-data D --mesh-spatial S``, with ``D * S =
-N``. The trainers take the data axis (``--mesh-spatial`` above 1 is ROADMAP A-4b and
-raises); ``tools/test.py`` takes both.
+N``. The trainers split the global batch over the data axis and each image's rows over
+the spatial axis (the ResNet-101 models; DeepLabv3 and DeepLab-VGG raise, ROADMAP
+A-4c); ``tools/test.py`` splits the images over the data axis and each eval head's
+output rows over the spatial axis.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="data-parallel degree: the global batch is --batch-size x "
                              "this, split across the ranks")
     parser.add_argument("--mesh-spatial", type=int, default=None,
-                        help="spatial degree: the evaluation's eval head split by "
-                             "output rows (tools/test.py; training refuses it, A-4b)")
+                        help="spatial degree: each image's rows split across the ranks "
+                             "(training: the ResNet-101 models' trunk and loss; "
+                             "evaluation: the eval head's output rows)")
     parser.add_argument("--coordinator", type=str, default=None,
                         help="host:port of rank 0, where the process group meets")
     parser.add_argument("--num-processes", type=int, default=None,
@@ -235,6 +238,7 @@ def build_eval_fn(cfg, args, paths: Optional[dict], mode: str,
     ``--val-list`` / ``--gt-dir`` (the fixture's under ``--synthetic``, at
     ``scaled_protocol``), or None when no val set is named."""
     from ..eval import evaluate
+    from ..train.loop import build_mesh
 
     val_list = paths["val_txt"] if paths else args.val_list
     gt_dir = paths["gt_dir"] if paths else args.gt_dir
@@ -242,10 +246,13 @@ def build_eval_fn(cfg, args, paths: Optional[dict], mode: str,
         return None
     eval_kw = scaled_protocol(cfg) if paths else {}
     root = paths["root"] if paths else cfg.data.root
+    # A spatial axis splits the eval head's rows, as tools/test.py does.
+    mesh = build_mesh(cfg, device) if cfg.mesh.spatial_axis > 1 else None
 
     def eval_fn(model):
         return evaluate(model, data_root=root, val_list=val_list, gt_dir=gt_dir,
                         mode=mode, process_workers=cfg.data.process_workers,
-                        batch_size=cfg.data.batch_size, device=device, **eval_kw)
+                        batch_size=cfg.data.batch_size, device=device, mesh=mesh,
+                        **eval_kw)
 
     return eval_fn

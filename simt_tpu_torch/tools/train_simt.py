@@ -10,6 +10,10 @@ Real data, on the card:
 On N ranks, one process each (global batch N x --batch-size; rank 0 at host:port):
   python -m simt_tpu_torch.tools.train_simt ... --coordinator host:port \
       --num-processes N --process-id i --mesh-data N
+and with each image's rows split over S of them (D x S = N; global batch D x
+--batch-size):
+  python -m simt_tpu_torch.tools.train_simt ... --coordinator host:port \
+      --num-processes N --process-id i --mesh-data D --mesh-spatial S
 
 On a generated fixture (8 train and 2 val images in a temporary directory):
   python -m simt_tpu_torch.tools.train_simt --synthetic --num-steps-stop 3 --save-pred-every 2

@@ -12,8 +12,9 @@ the CSV row), at an evaluation and a snapshot, and once at the end.
 
 Over several ranks (``cfg.mesh``, one process each in an initialised process group;
 ``parallel/mesh.py``) every rank runs this loop on its own device: the state is
-replicated from rank 0, each rank's loader decodes its block of every global batch
-(``process_shard``), the steps reduce across the ranks, the evaluation is sharded over
+replicated from rank 0, each rank's loader decodes its data index's block of every
+global batch (``process_shard``) and, on a spatial axis, the rank keeps its rows of it
+(``shard_rows``), the steps reduce across the ranks, the evaluation is sharded over
 them (every rank reads the same mIoU and takes the same keep/delete branch), and rank
 0 alone writes the CSV, the snapshots and deletes the previous best while the others
 wait for its saves.
@@ -38,7 +39,8 @@ from ..models.deeplab_single import res_deeplab
 from ..models.deeplab_vgg import deeplab_vgg
 from ..models.deeplabv3 import deeplabv3
 from ..models.resnet_multi import deeplab_multi, init_weights
-from ..parallel.mesh import Mesh, barrier, make_mesh, replicate_state, world_size
+from ..parallel.mesh import (Mesh, barrier, make_mesh, replicate_state, shard_rows,
+                             world_size)
 from ..utils import MetricWriter, StepTimer, format_simt_line, format_warmup_line
 from . import checkpoint as ckpt_lib
 from .simt import create_simt_state, make_simt_step
@@ -134,19 +136,12 @@ def build_loader(cfg, root: Optional[str] = None, list_path: Optional[str] = Non
 def _loader_shard(cfg, mesh: Optional[Mesh]) -> Dict:
     """``build_loader``'s batch size and ``process_shard`` for this rank: the global
     batch is ``batch_size * data_axis`` (``DataConfig.batch_size`` is per data shard)
-    and each rank decodes its ``1 / world`` block of it (the JAX loop's checks)."""
+    and every rank of a spatial group decodes its data index's block of it (one rank a
+    process: the rank then keeps its rows, ``shard_rows``)."""
     if mesh is None:
         return {}
-    global_bs = cfg.data.batch_size * mesh.data
-    if global_bs % mesh.world:
-        raise ValueError(f"global batch {global_bs} not divisible by {mesh.world} "
-                         "processes")
-    if mesh.data % mesh.world:
-        raise ValueError(f"data_axis {mesh.data} must be a multiple of the process count "
-                         f"{mesh.world} (spatial shards cannot span processes in the "
-                         "input path)")
-    return {"batch_size": global_bs // mesh.world,
-            "process_shard": (mesh.rank, mesh.world)}
+    return {"batch_size": cfg.data.batch_size,
+            "process_shard": (mesh.data_index, mesh.data)}
 
 
 def _next_batch(batch_iter: Iterator[Dict], iter_size: int, dev: torch.device) -> Dict:
@@ -216,15 +211,18 @@ def train(
     ``device`` naming the device type (a CUDA rank runs on the current device); an
     injected ``batch_iter`` yields this rank's block of each global batch, and the
     in-loop ``eval_fn`` must give every rank the same mIoU (``evaluate`` shards over
-    the ranks and sums their histograms). A spatial axis above 1 raises: H-sharded
-    training is ROADMAP A-4b.
+    the ranks and sums their histograms). On a spatial axis above 1 an injected
+    ``batch_iter`` yields this rank's data block whole, and the loop keeps the rank's
+    rows; the ResNet-101 models train there (DeepLabv3 and DeepLab-VGG raise: ROADMAP
+    A-4c).
     """
     dev = resolve_device(device)
-    if cfg.mesh.spatial_axis > 1:
+    if cfg.mesh.spatial_axis > 1 and cfg.model.arch in ("deeplabv3", "deeplab_vgg"):
         raise ValueError(
-            f"spatial_axis={cfg.mesh.spatial_axis}: H-sharded training (halo exchanges "
-            "inside the trunk's convolutions) is ROADMAP A-4b; --mesh-spatial splits the "
-            "evaluation only (tools/test.py)")
+            f"spatial_axis={cfg.mesh.spatial_axis}: H-sharded training of "
+            f"{cfg.model.arch} (its strided 3x3s, image pooling and half-pixel upsample "
+            "split by rows) is ROADMAP A-4c; the ResNet-101 models (deeplab_multi, "
+            "deeplab_single) train over the spatial axis")
     mesh = build_mesh(cfg, dev)
     if mesh is not None:
         dev = mesh.device
@@ -288,9 +286,11 @@ def train(
             batch_iter = build_loader(cfg, device=dev, **_loader_shard(cfg, mesh))
             stack.callback(batch_iter.close)  # stops the loader's workers
         if cfg.stage == "simt" and cfg.simt.cache_teacher:
-            batch_iter = TeacherCache(state.teacher, mean_bgr=cfg.data.mean_bgr).wrap(
-                batch_iter)
+            batch_iter = TeacherCache(state.teacher, mean_bgr=cfg.data.mean_bgr,
+                                      mesh=mesh).wrap(batch_iter)
             print_fn("teacher cache enabled (float16 posteriors, skips teacher forward)")
+        if mesh is not None and mesh.spatial > 1:
+            batch_iter = (shard_rows(b, mesh) for b in batch_iter)
         stack.callback(writer.close)
         prof = stack.enter_context(_profiler(dev)) if profile_dir else None
         timer = StepTimer()

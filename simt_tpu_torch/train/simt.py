@@ -18,14 +18,18 @@ One call of the step does what the reference does per iteration
     the reference's metric conventions;
   - one SGD step for the model and one Adam step each for T1 and T2.
 
-Over a data mesh of several ranks (``parallel/mesh.py``; each rank a block of the
-global batch) the step is the global batch's, as the JAX package's one program is:
-BatchNorm takes global batch statistics, the loss block global counts and the global
-anchor, and one rule reduces the gradients: what depends on the data is summed over the
-ranks, what is replicated is not. The data losses' gradients (the student's and their
-part of T1/T2's) are summed in one ``all_reduce`` (``grad_sync``) after the last
-sub-batch; the convex, volume and anchor terms and the inner W loop's T-gradients are
-the same on every rank and are added after it, once; the W updates see no data.
+Over a mesh of several ranks (``parallel/mesh.py``; each rank a block of the global
+batch, and on the spatial axis a block of its rows) the step is the global batch's, as
+the JAX package's one program is: BatchNorm takes global batch statistics, the loss
+block global counts and the global anchor, and one rule reduces the gradients over
+every rank of the mesh (decision C-d7): what depends on the data is summed, what is
+replicated is not. The data losses' gradients (the student's and their part of
+T1/T2's) are summed in one ``all_reduce`` (``grad_sync``) after the last sub-batch; the
+convex, volume and anchor terms and the inner W loop's T-gradients are the same on
+every rank and are added after it, once; the W updates see no data. On the spatial axis
+the teacher and the student run on the rank's rows of the images (of the crop's
+height, ``cfg.data.crop_size``) inside ``spatial_rows`` and return their stride-8
+outputs gathered; the loss block takes the rank's band of label rows.
 
 The step never waits for the card: no ``.item()``, no branch on a tensor; the learning
 rate comes from the host-side step count and the metrics come back as 0-d tensors.
@@ -44,7 +48,8 @@ from ..models import ntm as ntm_lib
 from ..ops.fused_losses import simt_loss_block
 from ..ops.losses import mse_sum, volume_loss
 from ..ops.schedules import poly_lr
-from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, sync_grads
+from ..parallel.mesh import (Mesh, all_reduce_, gather_rows, global_batch_stats,
+                             row_block, spatial_rows, sync_grads)
 from .state import NTMState, SimTState, make_adam, make_model_optimizer
 
 
@@ -109,8 +114,9 @@ class SimTStep:
     the cached teacher posterior, with a leading ``iter_size`` axis when
     ``iter_size > 1``; numpy arrays or tensors.
 
-    ``mesh``: the ranks' mesh when this rank holds a data block of the global batch
-    (None: one process). The metrics are the global batch's on every rank.
+    ``mesh``: the ranks' mesh when this rank holds a block of the global batch (None:
+    one process; ``shard_batch`` gives a rank its block). The metrics are the global
+    batch's on every rank.
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
     end)`` CUDA events around its parts (inner_w, teacher, student_forward, backward,
@@ -119,7 +125,8 @@ class SimTStep:
 
     def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.group = mesh.data_group if mesh is not None else None
+        self.mesh = mesh
+        self.group = mesh.group if mesh is not None else None
         self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
 
     @contextlib.contextmanager
@@ -183,6 +190,7 @@ class SimTStep:
                                     cfg.data.mean_bgr)
             label = normalize_label(torch.as_tensor(sub["label"], device=dev))
             x = image.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+            height, band = image_rows(cfg, self.mesh, image)
 
             # ------- teacher posterior (:351-354) -------
             with self._span("teacher"), torch.no_grad():
@@ -192,21 +200,28 @@ class SimTStep:
                     teacher_prob8 = torch.as_tensor(sub["teacher_prob8"],
                                                     device=dev).float()
                 else:
-                    _, teach2 = st.teacher(x)
+                    with spatial_rows(self.mesh, height):
+                        _, teach2 = st.teacher(x)
                     teacher_prob8 = torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
 
             # ------- student forward + composite loss (:370-424) -------
             with self._span("student_forward"):
                 t1m, t2m = ntm(st.t1.param), ntm(st.t2.param)
-                with global_batch_stats(self.group):
+                with global_batch_stats(self.group), spatial_rows(self.mesh, height):
                     x1, x2 = st.model(x)
+                if band is not None and "teacher_prob8" in sub:
+                    # The cached posterior's rows, sharded as the batch is (shard_rows).
+                    teacher_prob8 = gather_rows(teacher_prob8.permute(0, 3, 1, 2),
+                                                self.mesh.rows(height), x1.shape[2]
+                                                ).permute(0, 2, 3, 1)
                 losses = simt_loss_block(
                     x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1), teacher_prob8, label,
                     t1m, t2m, num_classes=c, open_classes=o,
                     threshold_high=s.threshold_high, threshold_low=s.threshold_low,
                     lambda_place=s.lambda_place, lambda_seg=s.lambda_seg,
                     ignore_label=cfg.ignore_label, chunk_rows=s.loss_chunk_rows,
-                    group=self.group)
+                    group=self.group, band=band,
+                    first_image=None if band is None else self.mesh.data_index * len(label))
                 convex = -(_sq(w1_mat @ t1m) + _sq(w2_mat @ t2m))
                 volume = _guarded_volume(t1m, t2m)
                 loss_target = (losses["loss_p2"] + losses["loss_y2"]
@@ -259,6 +274,23 @@ class SimTStep:
         st.step += 1
         metrics["lr"] = torch.tensor(lr)
         return metrics
+
+
+def image_rows(cfg, mesh: Optional[Mesh],
+               image: torch.Tensor) -> Tuple[int, Optional[Tuple[int, int]]]:
+    """(the global height of a sub-batch's images, the loss band ``(r0, height)`` of its
+    label rows, or None without a spatial axis). On the spatial axis the images are the
+    crop's height (``cfg.data.crop_size``) and ``image`` (B, rows, W, 3) must hold this
+    rank's ``row_block`` of it."""
+    if mesh is None or mesh.spatial == 1:
+        return image.shape[1], None
+    height = cfg.data.crop_size[1]
+    lo, hi = row_block(height, mesh.spatial_index, mesh.spatial)
+    if image.shape[1] != hi - lo:
+        raise ValueError(f"spatial rank {mesh.spatial_index} of {mesh.spatial} holds "
+                         f"{image.shape[1]} image rows; its block of the crop's "
+                         f"{height} rows is [{lo}, {hi}) (shard_rows)")
+    return height, (lo, height)
 
 
 def make_simt_step(cfg, mesh: Optional[Mesh] = None) -> SimTStep:

@@ -11,6 +11,10 @@ hands it to the step as ``teacher_prob8``; the SimT step then skips the teacher.
 Rounding to float16 (at most 5e-4 on a probability) can flip a threshold decision on a
 near tie, so the cache is off by default (``SimTConfig.cache_teacher``). An image's
 first visit sees the rounded values too, so every epoch sees the same posterior.
+
+On a spatial axis (``mesh``) every rank of a spatial group sees its data block whole;
+the teacher runs H-sharded on the rank's rows and the cache stores the gathered
+posterior, which the loop then cuts into rows with the rest of the batch.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from ..config import IMG_MEAN_BGR
 from ..data.pipeline import normalize_image
+from ..parallel.mesh import Mesh, row_block, spatial_rows
 
 CAPACITY_ENTRIES = 8192  # entries kept; a miss past them is computed, not stored
 
@@ -29,11 +34,13 @@ CAPACITY_ENTRIES = 8192  # entries kept; a miss past them is computed, not store
 class TeacherCache:
     """Posteriors of ``teacher`` (a model already on its device, in eval mode) keyed on
     ``(name, mirror)``, at most ``CAPACITY_ENTRIES`` of them, stored as
-    ``store_dtype`` on the host. ``hits`` and ``misses`` count images."""
+    ``store_dtype`` on the host. ``hits`` and ``misses`` count images. ``mesh``: this
+    rank's mesh, whose spatial axis (if above 1) H-shards the teacher."""
 
     def __init__(self, teacher: nn.Module, *, store_dtype: torch.dtype = torch.float16,
-                 mean_bgr: Optional[Sequence[float]] = None):
+                 mean_bgr: Optional[Sequence[float]] = None, mesh: Optional[Mesh] = None):
         self.teacher = teacher
+        self.mesh = mesh
         self.mean_bgr = IMG_MEAN_BGR if mean_bgr is None else tuple(mean_bgr)
         self.store_dtype = store_dtype
         self._cache: Dict[tuple, torch.Tensor] = {}
@@ -49,7 +56,12 @@ class TeacherCache:
         teacher's device, from a (B, H, W, 3) image batch, as the SimT step computes it."""
         dev = next(self.teacher.parameters()).device
         x = normalize_image(torch.as_tensor(image, device=dev), self.mean_bgr)
-        _, teach2 = self.teacher(x.permute(0, 3, 1, 2))
+        height = x.shape[1]
+        if self.mesh is not None and self.mesh.spatial > 1:
+            lo, hi = row_block(height, self.mesh.spatial_index, self.mesh.spatial)
+            x = x[:, lo:hi]
+        with spatial_rows(self.mesh, height):
+            _, teach2 = self.teacher(x.permute(0, 3, 1, 2))
         return torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
 
     def attach(self, batch: Dict) -> Dict:

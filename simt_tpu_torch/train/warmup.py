@@ -16,10 +16,12 @@ One call of the step does what the reference does per iteration
     groups (``param_label(warmup=True, arch=...)``): for DeepLabv2, 1x for the trunk
     (stem and layers 1-2 included) and 10x for the heads.
 
-Over a data mesh of several ranks (``parallel/mesh.py``) the step is the global
-batch's: BatchNorm takes global batch statistics, each CE mean is this rank's sum over
-the global count, the gradients are summed over the ranks in one ``all_reduce``
-(``grad_sync``) after the last sub-batch, and the metrics are the global values.
+Over a mesh of several ranks (``parallel/mesh.py``) the step is the global batch's:
+BatchNorm takes global batch statistics, each CE mean is this rank's sum over the
+global count, the gradients are summed over every rank of the mesh in one
+``all_reduce`` (``grad_sync``) after the last sub-batch, and the metrics are the
+global values. On the spatial axis the ResNet-101 models run on the rank's rows inside
+``spatial_rows`` and each CE covers the rank's band of label rows (``simt.py``).
 
 The step never waits for the card: the metrics come back as 0-d tensors.
 """
@@ -36,7 +38,8 @@ from ..data.pipeline import normalize_image, normalize_label
 from ..ops.fused_losses import upsample_ce
 from ..ops.losses import cross_entropy_2d
 from ..ops.schedules import poly_lr
-from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, sync_grads
+from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, spatial_rows, sync_grads
+from .simt import image_rows
 from .state import WarmupState, make_model_optimizer
 
 
@@ -60,8 +63,8 @@ class WarmupStep:
     BGR float32 (or uint8) and ``label`` (B, H, W) integer, with a leading
     ``iter_size`` axis when ``iter_size > 1``; numpy arrays or tensors.
 
-    ``mesh``: the ranks' mesh when this rank holds a data block of the global batch
-    (None: one process). The metrics are the global batch's on every rank.
+    ``mesh``: the ranks' mesh when this rank holds a block of the global batch (None:
+    one process). The metrics are the global batch's on every rank.
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
     end)`` CUDA events around its parts (forward, backward, grad_sync over several
@@ -70,7 +73,8 @@ class WarmupStep:
 
     def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.group = mesh.data_group if mesh is not None else None
+        self.mesh = mesh
+        self.group = mesh.group if mesh is not None else None
         self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
 
     @contextlib.contextmanager
@@ -89,18 +93,19 @@ class WarmupStep:
                 label: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         ignore, group = cfg.ignore_label, self.group
-        with global_batch_stats(group):
+        height, band = image_rows(cfg, self.mesh, image)
+        with global_batch_stats(group), spatial_rows(self.mesh, height):
             ys = model(image.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
         # A single-output model (DeepLabv3) is both heads (JAX warmup.py:75-78).
         x1, x2 = ys if isinstance(ys, tuple) else (ys, ys)
         x1, x2 = x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)
-        if x1.shape[1:3] == label.shape[1:]:
+        if band is None and x1.shape[1:3] == label.shape[1:]:
             # Logits already at the input's size: plain masked CE, no upsample.
             return (cross_entropy_2d(x1, label, ignore_label=ignore, group=group),
                     cross_entropy_2d(x2, label, ignore_label=ignore, group=group))
         chunk = cfg.simt.loss_chunk_rows
-        return (upsample_ce(x1, label, ignore_label=ignore, chunk_rows=chunk, group=group),
-                upsample_ce(x2, label, ignore_label=ignore, chunk_rows=chunk, group=group))
+        return tuple(upsample_ce(x, label, ignore_label=ignore, chunk_rows=chunk,
+                                 group=group, band=band) for x in (x1, x2))
 
     def __call__(self, st: WarmupState, batch: Dict) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

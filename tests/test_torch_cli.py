@@ -14,10 +14,10 @@ devkit's 19):
     --cache-teacher`` feeds the step from the teacher cache; ``train_simt --model``
     other than deeplab_multi raises the JAX package's error;
   - the mesh and process-group flags (ROADMAP A-4, ported) refused in one process where
-    they cannot hold, each naming what is missing: ``--mesh-data 2`` the processes,
-    ``--mesh-spatial 2`` A-4b in the trainers (the evaluation takes it across
-    processes), ``--num-processes`` / ``--process-id`` the coordinator, a process id
-    outside the group; tests/test_torch_multiprocess.py runs them across processes.
+    they cannot hold, each naming what is missing: ``--mesh-data 2`` and
+    ``--mesh-spatial 2`` the processes, ``--num-processes`` / ``--process-id`` the
+    coordinator, a process id outside the group; tests/test_torch_multiprocess.py runs
+    them across processes.
 """
 
 import os
@@ -74,7 +74,7 @@ def test_test_cli_saves_predictions(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-data", "2"], "--num-processes"),
-    (["--mesh-spatial", "2"], ("A-4b", "A-4b", "--num-processes")),
+    (["--mesh-spatial", "2"], "--num-processes"),
     (["--coordinator", "localhost:1", "--process-id", "1"], "outside 0..0"),
     (["--num-processes", "2"], "--coordinator"),
     (["--process-id", "1"], "--coordinator")],

@@ -15,7 +15,13 @@ fixture's list files (64x32 crops).
     ``evaluate(mesh=)`` on a spatial=2 mesh (the head split by output rows) equal too;
   - the CLIs with ``--coordinator``, ``--num-processes``, ``--process-id`` and
     ``--mesh-spatial`` (tools/test.py) or ``--mesh-data`` (tools/train_simt.py) in two
-    fresh processes: one mIoU on both ranks, two steps on both ranks.
+    fresh processes: one mIoU on both ranks, two steps on both ranks;
+  - ``train_simt --mesh-spatial 2 --cache-teacher`` (each image's rows split over two
+    processes, the teacher cache's teacher H-sharded, the row-split evaluation after
+    step 1) against the same CLI in one process over the
+    same batches, with the bounds above: the continuous metrics within 5e-3, both
+    ranks' metrics and parameters equal, rank 0's CSV and snapshots; ``train()`` raises
+    for DeepLabv3 and DeepLab-VGG on a spatial axis, naming A-4c.
 """
 
 import csv
@@ -164,17 +170,29 @@ def test_sharded_and_row_split_evaluation_equal_one_process(ranks, fixture, one_
             np.testing.assert_array_equal(hist, whole, err_msg=k)
 
 
+def _summary(out):
+    """A train CLI's summary as plain values: the step, the final metrics, the best
+    step and every tensor of the model and the NTM parameters."""
+    st = out["state"]
+    return {"step": st.step, "metrics": out["final_metrics"], "best": out["best_step"],
+            "params": {**{k: v.numpy() for k, v in st.model.state_dict().items()},
+                       **{k: getattr(st, k).param.detach().numpy()
+                          for k in ("t1", "t2", "w1", "w2")}}}
+
+
 def _cli_rank(rank, port, argv, queue):
     from simt_tpu_torch.tools import test as test_cli
     from simt_tpu_torch.tools import train_simt
 
     torch.set_num_threads(1)
     loop.deeplab_multi = _tiny
-    main = test_cli.main if argv[0] == "test" else train_simt.main
+    main = {"test": test_cli.main, "train": train_simt.main,
+            "train_summary": train_simt.main}[argv[0]]
     try:
         out = main(argv[1:] + ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
                                "2", "--process-id", str(rank)])
-        queue.put((rank, out if argv[0] == "test" else out["state"].step))
+        queue.put((rank, {"test": lambda o: o, "train": lambda o: o["state"].step,
+                          "train_summary": _summary}[argv[0]](out)))
     except BaseException as e:  # noqa: BLE001 -- reported to the parent
         queue.put((rank, repr(e)))
 
@@ -204,3 +222,36 @@ def test_clis_take_the_process_group_and_mesh_flags():
     steps = _cli(["train"] + EVAL_CLI + ["--input-size-target", "64,32", "--mesh-data",
                                          "2", "--num-steps-stop", "2"])
     assert steps == [2, 2]
+
+
+def test_spatial_train_cli_on_two_processes_matches_one_process(tmp_path, monkeypatch,
+                                                                one_thread):
+    from simt_tpu_torch.tools import train_simt
+
+    argv = EVAL_CLI + ["--input-size-target", "64,32", "--num-steps-stop", "2",
+                       "--save-pred-every", "1", "--log-every", "1", "--cache-teacher"]
+    snaps, csv_path = str(tmp_path / "snaps"), str(tmp_path / "m.csv")
+    ranks = _cli(["train_summary"] + argv + ["--mesh-spatial", "2", "--snapshot-dir",
+                                             snaps, "--csv", csv_path])
+    assert all(isinstance(r, dict) for r in ranks), ranks
+    monkeypatch.setattr(loop, "deeplab_multi", _tiny)
+    single = _summary(train_simt.main(argv))
+    r0, r1 = ranks
+    assert r0["step"] == r1["step"] == single["step"] == 2
+    assert r0["metrics"] == r1["metrics"] and r0["best"] == r1["best"] == 1
+    assert all(np.array_equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+    for k in CONTINUOUS:
+        want = single["metrics"][k]
+        assert abs(r0["metrics"][k] - want) < 5e-3 * max(1.0, abs(want)), (k, want)
+    assert sorted(os.listdir(snaps)) == ["step_00000001", "step_00000002"]
+    with open(csv_path) as f:
+        assert [r["step"] for r in csv.DictReader(f)] == ["0", "1"]
+
+
+@pytest.mark.parametrize("arch", ["deeplabv3", "deeplab_vgg"])
+def test_train_raises_naming_a4c_for_the_other_families_on_rows(arch):
+    cfg = tconfig.TrainConfig(stage="warmup", model=tconfig.ModelConfig(arch=arch),
+                              mesh=tconfig.MeshConfig(spatial_axis=2))
+    with pytest.raises(ValueError, match="A-4c"):
+        loop.train(cfg, device="cpu")
+
