@@ -5,6 +5,12 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. build: compile every CUDA source of the package with nvcc for sm_90a, in parallel;
+     then, in this process before any profiler session (after one, every step is
+     slower and its rate noisier), ``tools/soak.py`` at full width (ResNet-101,
+     512x1024, 19 + 15 classes, bf16; 200 steps in windows of 50): its line must pass
+     (finite metrics, no kernel built and no reserved growth after the warm-up, the
+     slowest window above 0.9 x the bench's steps/s), every SimT step B2/B3/B4/B5
+     1/1/92/26, all B4/B5 on wgmma;
   2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
      (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
      zero operand; iid gt and 64x64 regions aligned to the warps and shifted off them)
@@ -43,6 +49,12 @@ Phases (any failure exits non-zero before the last line is printed):
      their parts, then 3 profiled steps for the device busy share, then the same step
      with every conv2 on cuDNN (a yardstick the port never calls) timed in turns
      against it; and three full-width warmup steps against conv2 on the plain taps;
+     after the SimT path, ``tools/planted_noise.py`` in this process at full
+     geometry (19 + 15 classes, 512x1024, the four arms, 8 warmup + 4 steps an
+     arm): finite logged numbers, the oracle arm's
+     t_dist_known at most 1e-4 after every step, the warmup and CE steps B4/B5 66/33
+     and the SimT steps on the cached posterior B2/B3/B4/B5 1/1/59/26 a step (all
+     wgmma), the teacher routing equal to the CPU's for the seed;
      the host input pipeline: a 12-image 2048x1024 fixture, the native preprocessing
      against PIL bit for bit on this machine (2048x1024 -> 1024x512, images and labels),
      ``device_prefetch`` under a consumer slower than the loader (order, content, no
@@ -181,7 +193,7 @@ from simt_tpu_torch.parallel import (fetch_rows, initialize_multihost,  # noqa: 
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
-                                  train_simt, train_warmup)
+                                  planted_noise, soak, train_simt, train_warmup)
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
@@ -2909,6 +2921,138 @@ def phase_spatial(tmp: str, smi: str, ref: dict, rng: np.random.Generator) -> di
     return out
 
 
+# ---------------------------------------------------------------------------------
+# The long-run tools: the soak run and the planted-noise run at full width
+# ---------------------------------------------------------------------------------
+
+SOAK_ARGV = ["--steps", "200", "--window", "50"]
+PLANTED_ARGV = ["--warmup-steps", "8", "--train-steps", "4", "--log-every", "2",
+                "--n-train", "2", "--n-val", "1"]
+TOL_ORACLE_T = 1e-4  # the oracle arm's t_dist_known: T frozen at P*
+# Launches a step: the SimT step on the cached teacher posterior runs no teacher (B4 33
+# for the student's forward, 26 for the input gradient of layers 3-4).
+CACHED_SIMT_COUNTS = {"loss_core_fwd": 1, "loss_core_bwd": 1,
+                      "conv3x3_fwd": N_CONV2 + N_CONV2_L34, "conv3x3_wgrad": N_CONV2_L34}
+
+
+class StepLaunches:
+    """A train step whose calls are counted, with the launches each call made (the
+    counts read before and after it) summed by kernel; ``after(state)`` runs after each
+    call when given."""
+
+    def __init__(self, step, after=None):
+        self.step, self.after = step, after
+        self.calls = 0
+        self.launches = dict.fromkeys(COUNTED, 0)
+
+    def __call__(self, state, batch):
+        before = read_counts()
+        metrics = self.step(state, batch)
+        for name, n in read_counts().items():
+            self.launches[name] += n - before[name]
+        self.calls += 1
+        if self.after is not None:
+            self.after(state)
+        return metrics
+
+
+def check_per_step(path: str, steps: list, want: dict) -> Tuple[int, dict]:
+    """Fails unless the counted ``steps`` launched each kernel ``want`` times a call (0
+    if absent) and nothing else; returns (calls, launches)."""
+    calls = sum(s.calls for s in steps)
+    launches = {name: sum(s.launches[name] for s in steps) for name in COUNTED}
+    check_counts(f"{path} ({calls} steps)", launches,
+                 {name: n * calls for name, n in want.items()})
+    return calls, launches
+
+
+def phase_soak(smi: str) -> dict:
+    """``tools/soak.py`` at full width (ResNet-101, 512x1024, 19 + 15 classes, bf16),
+    200 steps in windows of 50, in this process: its JSON line must pass; every step
+    (the bench's floor reading, the warm-up, the soak, the profiled steps) launches
+    B2/B3/B4/B5 1/1/92/26, all B4/B5 on wgmma."""
+    t0 = time.perf_counter()
+    steps = []
+
+    def counted(cfg, *a, **kw):
+        steps.append(StepLaunches(make_simt_step(cfg, *a, **kw)))
+        return steps[-1]
+
+    reset_counts()
+    with mock.patch.object(bench, "make_simt_step", counted):
+        out = soak.run(soak.build_parser().parse_args(SOAK_ARGV))
+    print(json.dumps(out))
+    calls, _ = check_per_step("soak", steps, PAR_COUNTS["SimT"])
+    check_wgmma("soak", read_variants())
+    print(f"soak: {out['steps']} steps in windows of {SOAK_ARGV[3]}, {calls} SimT steps "
+          f"in all, launches a step B2/B3/B4/B5 1/1/{PAR_COUNTS['SimT']['conv3x3_fwd']}/"
+          f"{PAR_COUNTS['SimT']['conv3x3_wgrad']}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    if not out["pass"]:
+        fail(f"soak: the run did not pass: {out}")
+    return out
+
+
+def _numbers(rec):
+    if isinstance(rec, dict):
+        for v in rec.values():
+            yield from _numbers(v)
+    elif isinstance(rec, list):
+        for v in rec:
+            yield from _numbers(v)
+    elif isinstance(rec, (int, float)) and not isinstance(rec, bool):
+        yield rec
+
+
+def phase_planted(tmp: str, smi: str) -> dict:
+    """``tools/planted_noise.py`` at full geometry (19 + 15 classes, 512x1024,
+    ResNet-101, bf16), all four arms at a small step count, in this process: every
+    logged number finite; the oracle arm's t_dist_known at most TOL_ORACLE_T after
+    every step; the warmup (and CE) steps B4/B5 66/33 a step, the SimT steps on the
+    cached posterior B2/B3/B4/B5 1/1/59/26, all B4/B5 on wgmma; the teacher routing on
+    the card equal to the fixture's on the CPU for the same seed."""
+    t0 = time.perf_counter()
+    args = planted_noise.build_parser().parse_args(
+        PLANTED_ARGV + ["--out", os.path.join(tmp, "planted.json")])
+    fx, layers, _ = planted_noise.geometry(args.smoke)
+    warm_steps, simt_steps, oracle_dist = [], [], []
+
+    def counted_warmup(cfg, *a, **kw):
+        warm_steps.append(StepLaunches(make_warmup_step(cfg, *a, **kw)))
+        return warm_steps[-1]
+
+    def counted_simt(cfg, *a, **kw):
+        after = None
+        if cfg.optim.learning_rate_t == 0.0:  # the oracle arm
+            def after(st):
+                oracle_dist.append(planted_noise.t_metrics(
+                    fx, st.t1.param, st.t2.param)["t_dist_known"])
+        simt_steps.append(StepLaunches(make_simt_step(cfg, *a, **kw), after))
+        return simt_steps[-1]
+
+    reset_counts()
+    with mock.patch.object(planted_noise, "make_warmup_step", counted_warmup), \
+            mock.patch.object(planted_noise, "make_simt_step", counted_simt):
+        res = planted_noise.run(args, planted_noise.seeded_inits(fx, layers, args.seed))
+    check_per_step("planted warmup + ce", warm_steps, PAR_COUNTS["warmup"])
+    check_per_step("planted SimT arms", simt_steps, CACHED_SIMT_COUNTS)
+    check_wgmma("planted", read_variants())
+    if not all(math.isfinite(v) for v in _numbers(res)):
+        fail("planted: a logged number is not finite")
+    print(f"planted: oracle t_dist_known after each step {oracle_dist} "
+          f"(limit {TOL_ORACLE_T})")
+    if len(oracle_dist) != int(PLANTED_ARGV[3]) or max(oracle_dist) > TOL_ORACLE_T:
+        fail(f"planted: the oracle arm's T moved: t_dist_known {oracle_dist}")
+    cpu = fx.routing_diagnostics(fx.make_dataset(args.n_train, args.seed))
+    print(f"planted: teacher routing {res['teacher_routing']} (CPU {cpu})")
+    if res["teacher_routing"] != cpu:
+        fail("planted: the teacher routing on the card differs from the CPU's")
+    rates = {a: [r["steps_per_sec"] for r in v["traj"]] for a, v in res["arms"].items()}
+    print(f"planted: summary {json.dumps(res['summary'])}; steps/s by arm {rates}; "
+          f"the phase took {time.perf_counter() - t0:.1f} s [{smi}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2926,6 +3070,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     phase_build()
+    # The soak first: it holds its slowest window to 0.9 x a 20-step reading of the
+    # same rate, and after a profiler session in the process every step is slower and
+    # its rate noisier (CUPTI stays attached; tools/host_probe.py).
+    phase_soak(smi)
     worst = phase_kernel_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
     phase_conv_library_free()
@@ -2942,6 +3090,9 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         train = phase_train_main_path(tmp)
+        torch.cuda.empty_cache()
+        # The planted run before any phase starts worker processes.
+        phase_planted(tmp, smi)
         torch.cuda.empty_cache()
         phase_pipeline(tmp, train)
         warm = phase_warmup_main_path()

@@ -52,6 +52,41 @@ def ntm_forward(param: torch.Tensor, class_dist: torch.Tensor, num_classes: int,
     return t / torch.clamp(t.sum(dim=1, keepdim=True), min=1e-12)
 
 
+def ntm_invert(t: np.ndarray, class_dist: np.ndarray, num_classes: int) -> np.ndarray:
+    """The exact inverse of :func:`ntm_forward`, on numpy: the sigmoid parameters P with
+    ``normalize(sigmoid(P) * class_dist + [I; 0]) == t``. It plants a known transition
+    matrix inside the representable family (``tools/planted_noise.py``), so that
+    recovering it is an identification problem, not an approximation problem.
+
+    Row k's free scale Z_k (its sum before normalisation) must put every
+    s_j = sigmoid(p_kj) in (0, 1): a known row needs Z in (1/t_kk, (1 + cd_k)/t_kk)
+    and below every off-diagonal cap cd_j/t_kj; an open row needs Z < min_j cd_j/t_kj.
+    Each row takes the middle of its range; a leak above its structural cap cd_j
+    leaves the range empty and raises ValueError."""
+    c = num_classes
+    cd = np.asarray(class_dist, np.float64)
+    total = t.shape[0]
+    p = np.zeros((total, c), np.float64)
+    for k in range(total):
+        if k < c:
+            lo = 1.0 / t[k, k]
+            hi = (1.0 + cd[k]) / t[k, k]
+            for j in range(c):
+                if j != k and t[k, j] > 0:
+                    hi = min(hi, cd[j] / t[k, j])
+        else:
+            lo, hi = 0.0, min(cd[j] / t[k, j] for j in range(c) if t[k, j] > 0)
+        if not lo < hi:
+            raise ValueError(f"row {k}: leak above structural cap (lo={lo}, hi={hi})")
+        z = 0.5 * (lo + hi)
+        s = t[k] * z / cd
+        if k < c:
+            s[k] = (t[k, k] * z - 1.0) / cd[k]
+        s = np.clip(s, 1e-7, 1 - 1e-7)
+        p[k] = np.log(s) - np.log1p(-s)
+    return p.astype(np.float32)
+
+
 def w_init(num_classes: int, open_classes: int = 0) -> torch.Tensor:
     """sig_W parameter init: the constant 1/(classes - 1) (deeplab_multi.py:269-272)."""
     total = num_classes + open_classes

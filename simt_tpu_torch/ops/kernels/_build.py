@@ -30,6 +30,9 @@ SOURCES: Dict[str, str] = {"eval_fused": "eval_fused.cu", "loss_fused": "loss_fu
                            "conv3x3": "conv3x3.cu", "bottleneck": "bottleneck.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# nvcc compiles ``build`` has started in this process (a library already built starts
+# none): ``tools/soak.py`` holds it still after its warm-up.
+compiles = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +69,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
 
     Raises RuntimeError with nvcc's output if any compile fails.
     """
+    global compiles
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, Built] = {}
@@ -79,6 +83,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
+        compiles += 1
         running[name] = (proc, path, tmp, time.perf_counter())
     failed = []
     for name, (proc, path, tmp, t0) in running.items():

@@ -85,6 +85,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         main(["--synthetic"])
 
 
+def test_long_run_tools_default_to_cuda_and_raise_without_it(tmp_path, capsys):
+    _needs_a_host_without_a_card()
+    from simt_tpu_torch.tools import host_probe, planted_noise, soak
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        soak.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        host_probe.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        planted_noise.main(["--smoke", "--out", str(tmp_path / "planted.json")])
+    assert capsys.readouterr().out == ""
+    assert not os.listdir(tmp_path)  # nothing ran, nothing written
+
+
 def test_kernel_needs_a_card_and_never_falls_back():
     from simt_tpu_torch.ops.kernels import _build, eval_fused
 
