@@ -10,7 +10,15 @@ Phases (any failure exits non-zero before the last line is printed):
      512x1024, 19 + 15 classes, bf16; 200 steps in windows of 50): its line must pass
      (finite metrics, no kernel built and no reserved growth after the warm-up, the
      slowest window above 0.9 x the bench's steps/s), every SimT step B2/B3/B4/B5
-     1/1/92/26, all B4/B5 on wgmma;
+     1/1/92/26, all B4/B5 on wgmma; then ``tools/eval_variants.py`` in this process
+     (the seeded full-width ResNet-101, 19 + 15 classes, bf16, 512x1024 + 640x1280 ->
+     1024x2048: the fused eval head, the same split from the forwards by a synchronize,
+     and the unfused upsample/argmax/bincount, 20 timed calls each and their img/s; the
+     fused and split histograms equal bit for bit, the unfused one's totals equal and L1
+     within 2e-5 H W; B1 1 a fused or split call, none unfused, B4 66 a call) and
+     ``tools/tgame.py`` on the card (the toy problem's game for 300 steps under the
+     verbatim and paper-faithful forces, finite, T's distance printed; 20 verbatim steps
+     against the CPU's, T within 1e-4);
   2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
      (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
      zero operand; iid gt and 64x64 regions aligned to the warps and shifted off them)
@@ -144,7 +152,15 @@ Phases (any failure exits non-zero before the last line is printed):
      phase's one process at batch 2 with its gates (states equal bit for bit, losses
      within 5e-3, the first step's module changes), each rank's launches B2/B3/B4/B5
      1/1/92/26 a SimT step and B4/B5 66/33 a warmup step (all wgmma), each rank's peak
-     memory below one process's, its steps/s, spans and the rows exchange's host ms.
+     memory below one process's, its steps/s, spans and the rows exchange's host ms;
+     then the other two families on the same ranks (``train_warmup --model deeplabv3``
+     and ``--model deeplab_vgg``, full width, 19 classes, seeded): each rank's eval-mode
+     logits (DeepLabv3's band of the input-size rows, VGG's gathered stride-8 map)
+     against one process's (relative L2 within five bf16 ulps), DeepLabv3's row-split
+     two-scale evaluation of the 4 images at batch 4 equal to one process's bit for bit
+     with one B1 launch a rank, and 3 warmup steps at the global batch of 2 against one
+     process (states equal bit for bit after every step, losses within 5e-3, no package
+     kernel launched by the steps), each rank's ms a step, rows exchange and peak memory.
 
 Output, last three lines: {"kernels": [...]}; the card's name and power limit from
 nvidia-smi; {"ok": true, "device": {...}}. float32 convolutions and matmuls run without
@@ -188,12 +204,13 @@ from simt_tpu_torch.models import (DeeplabSingle, DeeplabVGG, DeepLabv3,  # noqa
                                    init_weights, layers)
 from simt_tpu_torch.ops.bottleneck import fused_bottleneck  # noqa: E402
 from simt_tpu_torch.parallel import (fetch_rows, initialize_multihost,  # noqa: E402
-                                     make_mesh, replicate_state, shard_batch,
+                                     make_mesh, replicate_state, row_block, shard_batch,
                                      spatial_rows)
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
-                                  planted_noise, soak, train_simt, train_warmup)
+                                  eval_variants, planted_noise, soak, tgame, train_simt,
+                                  train_warmup)
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
 from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
@@ -2781,6 +2798,78 @@ def _spatial_forward_input(dev) -> torch.Tensor:
     return torch.from_numpy(synthetic_batch(2, TRAIN_HW, C, seed=SEED)["image"]).to(dev)
 
 
+# The other two families on the spatial axis (H-sharded training of DeepLabv3 and
+# DeepLab-VGG): each rank's eval-mode logits (DeepLabv3's band of the input-size rows,
+# VGG's gathered stride-8 map), the row-split evaluation of DeepLabv3 (B1) and the
+# warmup steps, against one process at batch 2.
+SPATIAL_AUX = ("deeplabv3", "deeplab_vgg")
+
+
+def _aux_eval_kw(tmp: str) -> dict:
+    """``evaluate``'s arguments for the 4-image 2048x1024 fixture at DeepLabv3's batch."""
+    return dict(data_root=os.path.join(tmp, "full"),
+                val_list=os.path.join(tmp, "full", "lists", "val.txt"),
+                gt_dir=os.path.join(tmp, "full", "label"), return_hist=True,
+                batch_size=AUX_EVAL_BATCH["deeplabv3"], print_fn=lambda s: None)
+
+
+def _spatial_aux_run(tmp: str, arch: str, dev, mesh=None) -> dict:
+    """``arch``'s seeded full-width model (``train_warmup --model arch``, 19 classes):
+    the eval-mode forward of the spatial phase's batch of 2 (on this rank's rows with a
+    ``mesh``), DeepLabv3's two-scale evaluation (row-split over ``mesh``), then PAR_STEPS
+    warmup steps at the global batch of 2 with their metrics, launches, the wall ms of
+    the steps after the first, the rows exchange's host ms and bytes a step, the peak
+    memory and, on ranks, whether the ranks' states are equal after every step."""
+    import torch.distributed as dist
+
+    argv = ["--model", arch] + (["--mesh-spatial", str(PAR_WORLD)] if mesh else [])
+    cfg, state, batches = par_setup(tmp, "warmup", argv)
+    if mesh is not None:
+        replicate_state(state, mesh)
+    x = _spatial_forward_input(dev)
+    if mesh is not None:
+        x = shard_batch({"image": x}, mesh)["image"]
+    model = state.model.eval()
+    with torch.no_grad(), spatial_rows(mesh, TRAIN_HW[0]):
+        y = model(x.permute(0, 3, 1, 2))
+    out = {"forward": (y[0] if isinstance(y, tuple) else y).float().cpu().numpy()}
+    if arch == "deeplabv3":
+        reset_counts()
+        _, out["hist"] = evaluate(model, device=dev, mesh=mesh, **_aux_eval_kw(tmp))
+        out["eval_launches"] = read_counts()
+    model.train()
+    step = make_warmup_step(cfg, mesh)
+    metrics, equal, wall, exchange = [], [], 0.0, [0.0, 0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        fetch_rows.seconds, fetch_rows.bytes = 0.0, 0
+        t0 = time.perf_counter()
+        m = step(state, b if mesh is None else shard_batch(b, mesh))
+        torch.cuda.synchronize()
+        if i:
+            wall += time.perf_counter() - t0
+            exchange[0] += fetch_rows.seconds / (PAR_STEPS - 1)
+            exchange[1] = fetch_rows.bytes
+        metrics.append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            mine = _bits(state)
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=0)
+            same = torch.tensor([int(torch.equal(mine, theirs))], device=dev)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
+            equal.append(bool(same.item()))
+    out.update({"metrics": metrics, "equal": equal, "launches": read_counts(),
+                "ms_a_step": wall / (PAR_STEPS - 1) * 1e3,
+                "exchange_ms": exchange[0] * 1e3, "exchange_bytes": exchange[1],
+                "peak": torch.cuda.max_memory_allocated()})
+    del state, step, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def _spatial_rank(rank: int, port: int, tmp: str, queue) -> None:
     """One rank of the two on a (data 1, spatial 2) mesh, each holding half of every
     image's rows: the eval-mode forward (its gathered logits); then 3 SimT and 3 warmup
@@ -2798,7 +2887,9 @@ def _spatial_rank(rank: int, port: int, tmp: str, queue) -> None:
         model = _spatial_forward_model(dev)
         x = shard_batch({"image": _spatial_forward_input(dev)}, mesh)["image"]
         with torch.no_grad(), spatial_rows(mesh, TRAIN_HW[0]):
-            logits = [y.cpu() for y in model(x.permute(0, 3, 1, 2))]
+            # numpy: a rank's CPU tensors would cross the queue as shared-memory handles,
+            # which the parent cannot open once the rank has exited
+            logits = [y.cpu().numpy() for y in model(x.permute(0, 3, 1, 2))]
         out = {"forward": logits}
         del model
         for stage in ("SimT", "warmup"):
@@ -2843,12 +2934,64 @@ def _spatial_rank(rank: int, port: int, tmp: str, queue) -> None:
                           "peak": torch.cuda.max_memory_allocated()}
             del state, step
             torch.cuda.empty_cache()
+        for arch in SPATIAL_AUX:
+            out[arch] = _spatial_aux_run(tmp, arch, dev, mesh)
         queue.put((rank, out))
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 -- reported to the parent
         import traceback
 
         queue.put((rank, traceback.format_exc()))
+
+
+def _check_spatial_aux(arch: str, mine: list, ref: dict, smi: str) -> dict:
+    """The ranks' runs of ``arch`` (``_spatial_aux_run``) against one process's: each
+    rank's eval-mode logits within TOL_SPATIAL_FWD by relative L2 (DeepLabv3: its band
+    of the rows), the warmup losses within TOL_PAR_LOSS, the ranks' states equal bit for
+    bit after every step and their metrics equal, no package kernel launched by the
+    steps (cuDNN); DeepLabv3's row-split evaluation equal to one process's bit for bit,
+    one B1 launch a rank (one batch of 4)."""
+    fwd = []
+    for r, m in enumerate(mine):
+        want = torch.from_numpy(ref["forward"])
+        if arch == "deeplabv3":
+            lo, hi = row_block(TRAIN_HW[0], r, PAR_WORLD)
+            want = want[:, :, lo:hi]
+        fwd.append(float((torch.from_numpy(m["forward"]) - want).norm() / want.norm()))
+    loss_err = max(abs(m[k] - w[k]) / max(1.0, abs(w[k]))
+                   for m, w in zip(mine[0]["metrics"], ref["metrics"])
+                   for k in PAR_CONTINUOUS["warmup"])
+    equal = all(all(m["equal"]) for m in mine)
+    same_metrics = all(m["metrics"] == mine[0]["metrics"] for m in mine)
+    none = all(not any(m["launches"].values()) for m in mine)
+    ok = (max(fwd) <= TOL_SPATIAL_FWD and loss_err <= TOL_PAR_LOSS and equal
+          and same_metrics and none)
+    line = (f"spatial {arch} (train_warmup --model {arch} --mesh-spatial {PAR_WORLD}, full "
+            f"width, 19 classes, batch 2, 512x1024): eval-mode logits against one "
+            f"process's by relative L2 {[f'{e:.3e}' for e in fwd]} (limit "
+            f"{TOL_SPATIAL_FWD:.3e}); {PAR_STEPS} warmup steps: losses within "
+            f"{loss_err:.3e} of max(1, |loss|) (limit {TOL_PAR_LOSS:g}), states equal bit "
+            f"for bit after every step {[m['equal'] for m in mine]}, metrics equal across "
+            f"the ranks {same_metrics}, package kernels launched by the steps "
+            f"{[m['launches'] for m in mine]} (want none)")
+    if arch == "deeplabv3":
+        hist_ok = all(np.array_equal(m["hist"], ref["hist"]) for m in mine)
+        b1 = [m["eval_launches"]["multiscale_argmax_hist"] for m in mine]
+        ok = ok and hist_ok and b1 == [1] * PAR_WORLD
+        line += (f"; row-split evaluation of the 4 images at batch 4: histograms equal "
+                 f"to one process's {hist_ok}, B1 launches a rank {b1} (want 1)")
+    print(line + f": {'ok' if ok else 'MISMATCH'}")
+    for r, m in enumerate(mine):
+        print(f"spatial {arch} rank {r}: {m['ms_a_step']:.3f} ms a warmup step (wall, "
+              f"{PAR_STEPS - 1} steps; one process at batch 2 {ref['ms_a_step']:.3f}); the "
+              f"rows exchange {m['exchange_ms']:.3f} host ms over {m['exchange_bytes']} "
+              f"bytes a step; peak memory {m['peak'] / 2**30:.3f} GiB (one process "
+              f"{ref['peak'] / 2**30:.3f}) [{smi}]")
+    return {"ok": ok, "forward": max(fwd), "loss": loss_err,
+            "ms_a_step": [m["ms_a_step"] for m in mine], "ms_ref": ref["ms_a_step"],
+            "exchange_ms": [m["exchange_ms"] for m in mine],
+            "exchange_bytes": mine[0]["exchange_bytes"],
+            "peak": [m["peak"] for m in mine], "peak_ref": ref["peak"]}
 
 
 def phase_spatial(tmp: str, smi: str, ref: dict, rng: np.random.Generator) -> dict:
@@ -2867,13 +3010,17 @@ def phase_spatial(tmp: str, smi: str, ref: dict, rng: np.random.Generator) -> di
         want = [y.cpu() for y in model(_spatial_forward_input("cuda").permute(0, 3, 1, 2))]
     del model
     torch.cuda.empty_cache()
+    t_aux = time.perf_counter()
+    aux_ref = {arch: _spatial_aux_run(tmp, arch, "cuda") for arch in SPATIAL_AUX}
+    t_aux = time.perf_counter() - t_aux
     got = _run_ranks(_spatial_rank, tmp, "spatial")
     ok = True
     fwd_err = []
     for r in range(PAR_WORLD):
-        errs = [float((g - w).norm() / w.norm()) for g, w in zip(got[r]["forward"], want)]
+        errs = [float((torch.from_numpy(g) - w).norm() / w.norm())
+                for g, w in zip(got[r]["forward"], want)]
         fwd_err.append(max(errs))
-        same = all(torch.equal(a, b) for a, b in zip(got[r]["forward"], got[0]["forward"]))
+        same = all(np.array_equal(a, b) for a, b in zip(got[r]["forward"], got[0]["forward"]))
         ok = ok and same and max(errs) <= TOL_SPATIAL_FWD
         print(f"spatial forward (eval mode, bf16, batch 2, 512x1024) rank {r}: gathered "
               f"logits {tuple(got[r]['forward'][0].shape)} against one process's by "
@@ -2915,6 +3062,11 @@ def phase_spatial(tmp: str, smi: str, ref: dict, rng: np.random.Generator) -> di
                            "peak": [m["peak"] for m in mine], "peak_ref": peak_ref})
         ok = (ok and equal and same_metrics and counts_ok and wgmma and lower
               and loss_err <= TOL_PAR_LOSS and change_ok)
+    for arch in SPATIAL_AUX:
+        out[arch] = _check_spatial_aux(arch, [got[r][arch] for r in range(PAR_WORLD)],
+                                       aux_ref[arch], smi)
+        ok = ok and out[arch]["ok"]
+    print(f"spatial: the other families' one-process reference took {t_aux:.1f} s")
     print(f"spatial: the phase took {time.perf_counter() - t_phase:.1f} s [{smi}]")
     if not ok:
         fail("spatial: the ranks disagree with one process or with each other")
@@ -3053,6 +3205,70 @@ def phase_planted(tmp: str, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------------
+# The eval head's variants and the T-game
+# ---------------------------------------------------------------------------------
+
+EVAL_VARIANT_CALLS = 20  # timed calls a variant, after one warm-up call
+TGAME_STEPS = 300  # outer steps of the toy problem's game on the card
+TGAME_CPU_STEPS = 20  # ... held to the CPU's game at TOL_TGAME
+TOL_TGAME = 1e-4  # T after TGAME_CPU_STEPS steps, the card against the CPU
+
+
+def phase_eval_variants(smi: str) -> dict:
+    """``tools/eval_variants.py`` at full width in this process (function calls: a
+    spawned child that imports torch would blind later profiler sessions): the fused,
+    split and unfused heads after the two forwards of the seeded ResNet-101 (19 + 15
+    classes, bf16, 512x1024 + 640x1280 -> 1024x2048), EVAL_VARIANT_CALLS timed calls
+    each after one warm-up call; their histograms held to one another (fused and split
+    bit for bit; unfused totals equal and L1 within 2e-5 H W); launches B1 1 a fused
+    or split call and none unfused, B4 66 a call (33 a forward), all wgmma."""
+    t0 = time.perf_counter()
+    reset_counts()
+    res = eval_variants.run(device="cuda", calls=EVAL_VARIANT_CALLS, print_fn=print)
+    calls = EVAL_VARIANT_CALLS + 1
+    check_counts("eval variants", read_counts(),
+                 {"multiscale_argmax_hist": 2 * calls,
+                  "conv3x3_fwd": 2 * N_CONV2 * calls * len(eval_variants.VARIANTS)})
+    check_wgmma("eval variants", read_variants())
+    recs = res["records"]
+    per_call = {v: r["b1_launches"] / calls for v, r in recs.items()}
+    print(f"eval variants: img/s fused {recs['fused']['img_per_sec']:.3f}, split "
+          f"{recs['split']['img_per_sec']:.3f}, unfused {recs['unfused']['img_per_sec']:.3f}"
+          f"; B1 launches a call {per_call}; checks {res['checks']}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    if not res["checks"]["ok"] or per_call != {"fused": 1, "split": 1, "unfused": 0}:
+        fail(f"eval variants: the heads disagree or B1 ran off its path: {res['checks']}")
+    return recs
+
+
+def phase_tgame(smi: str) -> dict:
+    """``tools/tgame.py`` on the card: the toy problem's game (C=8, O=2) for
+    TGAME_STEPS steps under the reference-verbatim and the paper-faithful forces (T's
+    distance from T* finite and printed), and TGAME_CPU_STEPS steps of the verbatim game
+    against the same game on the CPU from the same start (T within TOL_TGAME)."""
+    t0 = time.perf_counter()
+    prob = tgame.toy_problem()
+    out = {}
+    for label, kw in (tgame.SETTINGS[0], tgame.SETTINGS[3]):
+        d0, d1, t = tgame.run_game(*prob, steps=TGAME_STEPS, device="cuda", verbose=False,
+                                   **kw)
+        out[label] = (d0, d1)
+        print(f"tgame toy C=8/O=2, {label}, {TGAME_STEPS} steps on the card: dT {d0:.4f} "
+              f"-> {d1:.4f}")
+        if not (math.isfinite(d1) and np.isfinite(t).all()):
+            fail(f"tgame: {label} is not finite")
+    _, _, card = tgame.run_game(*prob, steps=TGAME_CPU_STEPS, device="cuda", verbose=False)
+    _, _, cpu = tgame.run_game(*prob, steps=TGAME_CPU_STEPS, device="cpu", verbose=False)
+    err = float(np.abs(card - cpu).max())
+    print(f"tgame: {TGAME_CPU_STEPS} verbatim steps, the card's T against the CPU's: max "
+          f"|diff| {err:.3e} (limit {TOL_TGAME:g}); the phase took "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    if err > TOL_TGAME:
+        fail("tgame: the card's game differs from the CPU's")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3074,6 +3290,9 @@ def main() -> int:
     # same rate, and after a profiler session in the process every step is slower and
     # its rate noisier (CUPTI stays attached; tools/host_probe.py).
     phase_soak(smi)
+    phase_eval_variants(smi)
+    torch.cuda.empty_cache()
+    phase_tgame(smi)
     worst = phase_kernel_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
     phase_conv_library_free()

@@ -13,6 +13,12 @@ pools after the ReLUs of convs 2, 7 and 14, so ``features.29`` is fc6 and the JA
 export's ``features_{i}`` land on the same modules. The convs are cuDNN's, as the JAX
 package's are ``nn.Conv``. No torchvision weights are read (they would need a
 download): weights come from ``init_weights``, a JAX export or a ``.pth``.
+
+Inside ``parallel.spatial_rows`` the input is this rank's rows of the images
+(``_forward_rows``): each 3x3 of ``features`` and each floor-mode pool fetches its
+window (``ops/conv.py``'s ``conv2d_rows``, ``max_pool_rows``), the classifier one
+window with its largest halo (``layers.py::aspp_rows``), and the stride-8 logits come
+back gathered, whole, on every rank of the spatial group (``parallel.gather_rows``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import ClassifierModule, refuse_rows
+from ..ops.conv import conv2d_rows, max_pool_rows
+from ..parallel.mesh import RowSharding, gather_rows, row_sharding
+from .layers import ClassifierModule, aspp_rows
 
 # (Sequential index, out channels, dilation) of every conv of the trimmed stack.
 _VGG_CONVS = (
@@ -57,11 +65,32 @@ class DeeplabVGG(nn.Module):
         self.classifier = ClassifierModule(1024, num_classes, effective_branches=2)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        refuse_rows(type(self).__name__)
+        rows = row_sharding()
+        if rows is not None:
+            return self._forward_rows(x, rows)
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             out = self.classifier(self.features(x))
         out = out.float()
+        return out, out
+
+    def _forward_rows(self, x: torch.Tensor,
+                      rows: RowSharding) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` on this rank's rows; the logits gathered."""
+        h = rows.height
+        with torch.autocast(x.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            for m in self.features:
+                if isinstance(m, nn.Conv2d):
+                    x, h = conv2d_rows(x, m.weight, m.bias, rows, h, padding=m.padding[0],
+                                       dilation=m.dilation[0])
+                elif isinstance(m, nn.MaxPool2d):
+                    x, h = max_pool_rows(x, rows, h, m.kernel_size, m.stride, m.padding,
+                                         m.ceil_mode)
+                else:
+                    x = m(x)
+            out = aspp_rows([self.classifier], x, rows, h)
+        out = gather_rows(out.float(), rows, h)
         return out, out
 
 

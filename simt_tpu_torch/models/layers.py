@@ -28,24 +28,24 @@ from torch import nn
 
 from ..ops.conv import (conv2d_rows, dilated_conv3x3, dilated_conv3x3_rows, max_pool_rows,
                         no_rows, row_windows)
-from ..parallel.mesh import (RowSharding, all_reduce_sum, batch_stats_group, fetch_rows,
-                             row_sharding)
+from ..parallel.mesh import RowSharding, all_reduce_sum, batch_stats_group, fetch_rows
 
 
 class _Moments(torch.autograd.Function):
-    """Per-channel (sum, sum of squares) of an NCHW tensor in float32, (2, C). The
-    backward keeps only the input: d/dx = g_sum + 2 x g_sq."""
+    """Per-channel (sum, sum of squares) of an NCHW tensor in float32 (float64 for a
+    float64 tensor), (2, C). The backward keeps only the input: d/dx = g_sum + 2 x
+    g_sq."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        dx = g[0, None, :, None, None] + 2.0 * x.float() * g[1, None, :, None, None]
+        dx = g[0, None, :, None, None] + 2.0 * x.to(g.dtype) * g[1, None, :, None, None]
         return dx.to(x.dtype)
 
 
@@ -90,8 +90,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         DeepLabv3 need it); flax's variance E[x^2] - E[x]^2 over the global batch, and
         its biased running-variance update with N the global count (decision C-d1)."""
         c = x.shape[1]
-        local = torch.cat([_Moments.apply(x).reshape(-1),
-                           x.new_full((1,), x.numel() // c, dtype=torch.float32)])
+        moments = _Moments.apply(x)
+        local = torch.cat([moments.reshape(-1),
+                           x.new_full((1,), x.numel() // c, dtype=moments.dtype)])
         tot = all_reduce_sum(local, group)
         mean = tot[:c] / tot[2 * c]
         var = torch.clamp(tot[c:2 * c] / tot[2 * c] - mean * mean, min=0.0)
@@ -237,18 +238,8 @@ class ClassifierModule(nn.Module):
 
 
 # --------------------------------------------------------------------------------------
-# The ResNet trunk on this rank's rows (inside ``parallel.spatial_rows``)
+# The ResNet trunk and the ASPP heads on this rank's rows (``parallel.spatial_rows``)
 # --------------------------------------------------------------------------------------
-
-
-def refuse_rows(model: str) -> None:
-    """Raises inside ``parallel.spatial_rows`` for a model with no rows forward: its
-    strided 3x3s, image pooling and half-pixel upsample are not split by rows yet
-    (ROADMAP A-4c)."""
-    if row_sharding() is not None:
-        raise ValueError(f"{model} has no H-sharded forward (training over the spatial "
-                         "axis covers the ResNet-101 models; DeepLabv3 and DeepLab-VGG "
-                         "are ROADMAP A-4c)")
 
 
 def stem_rows(model: nn.Module, x: torch.Tensor,

@@ -148,16 +148,22 @@ def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     return F.conv2d(x, weight, bias, stride, (0, padding), dilation), h_out
 
 
-def max_pool_rows(x: torch.Tensor, rows: RowSharding,
-                  height: int) -> Tuple[torch.Tensor, int]:
-    """The stem's 3x3/2 pad-1 ceil-mode max pool (``models/layers.py::max_pool_ceil``)
-    on this rank's rows: its window is padded with -inf, and its last window may run
-    past the last row (ceil mode)."""
-    h_out = out_rows(height, 3, 2, 1, ceil_mode=True)
-    x = fetch_rows(x, rows, height, row_windows(rows.size, h_out, 3, 2, 1), -math.inf)
+def max_pool_rows(x: torch.Tensor, rows: RowSharding, height: int, kernel: int = 3,
+                  stride: int = 2, padding: int = 1,
+                  ceil_mode: bool = True) -> Tuple[torch.Tensor, int]:
+    """``F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)`` on this rank's
+    rows (by default the ResNet stem's 3x3/2 pad-1 ceil-mode pool,
+    ``models/layers.py::max_pool_ceil``): its window is padded with -inf, its last
+    window may run past the last row in ceil mode, and in floor mode the rows past the
+    last whole window are read by no rank (an odd height's last row under a 2x2/2
+    pool)."""
+    h_out = out_rows(height, kernel, stride, padding, ceil_mode=ceil_mode)
+    x = fetch_rows(x, rows, height, row_windows(rows.size, h_out, kernel, stride, padding),
+                   -math.inf)
     if x.shape[2] == 0:
-        return no_rows(x, x.shape[1], out_rows(x.shape[3], 3, 2, 1, ceil_mode=True)), h_out
-    return F.max_pool2d(x, 3, 2, (0, 1), ceil_mode=True), h_out
+        w_out = out_rows(x.shape[3], kernel, stride, padding, ceil_mode=ceil_mode)
+        return no_rows(x, x.shape[1], w_out), h_out
+    return F.max_pool2d(x, kernel, stride, (0, padding), ceil_mode=ceil_mode), h_out
 
 
 def dilated_conv3x3_rows(x: torch.Tensor, w: torch.Tensor, d: int, rows: RowSharding,

@@ -8,17 +8,23 @@ separable linear map: ``out = A_h @ x @ A_w^T`` with the row-stochastic matrices
 ``interp_taps``, which is derived from the same matrices.
 
 The half-pixel resize (``align_corners=False``) is DeepLabv3's in-model upsample; it is
-``F.interpolate``, as the JAX package's is ``jax.image.resize``.
+``F.interpolate``, as the JAX package's is ``jax.image.resize``. On the spatial axis
+(``parallel/mesh.py::spatial_rows``) ``upsample_bilinear_half_pixel_rows`` gives this
+rank's block of the output rows from the window of source rows they read: the H
+direction's two taps a row are ``half_pixel_taps`` (``F.interpolate``'s own float32
+source coordinates), the W direction stays ``F.interpolate``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import RowSharding, fetch_rows, row_block
 
 
 @functools.lru_cache(maxsize=64)
@@ -110,3 +116,57 @@ def upsample_bilinear_half_pixel(x: torch.Tensor, out_hw: Tuple[int, int]) -> to
     y = F.interpolate(x.float().permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def half_pixel_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray,
+                                                            np.ndarray, np.ndarray]:
+    """The two source rows ``i0``, ``i1`` (int64) and weights ``l0``, ``l1`` (float32)
+    of every output row of a half-pixel (``align_corners=False``) linear resize from
+    ``in_size`` to ``out_size``, as ``F.interpolate`` computes them in float32: the
+    source coordinate ``(in/out) * (r + 0.5) - 0.5`` clamped at 0, its floor and
+    fraction, the second tap clamped at the last row."""
+    scale = np.float32(in_size) / np.float32(out_size)
+    src = scale * (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) - np.float32(0.5)
+    src = np.maximum(src, np.float32(0.0))
+    i0 = np.minimum(np.floor(src).astype(np.int64), in_size - 1)
+    l1 = np.clip(src - i0.astype(np.float32), 0.0, 1.0).astype(np.float32)
+    taps = (i0, np.minimum(i0 + 1, in_size - 1), (np.float32(1.0) - l1).astype(np.float32),
+            l1)
+    for arr in taps:
+        arr.setflags(write=False)  # cached: shared by every caller
+    return taps
+
+
+def half_pixel_windows(size: int, in_size: int, out_size: int) -> List[Tuple[int, int]]:
+    """Each of ``size`` ranks' window ``[lo, hi)`` of source rows for its ``row_block``
+    of the ``out_size`` output rows (empty for an empty block); inside ``[0, in_size)``,
+    since the taps are clamped at the image's edges."""
+    i0, i1, _, _ = half_pixel_taps(in_size, out_size)
+    out = []
+    for r in range(size):
+        lo, hi = row_block(out_size, r, size)
+        out.append((int(i0[lo]), int(i1[hi - 1]) + 1) if hi > lo else (0, 0))
+    return out
+
+
+def upsample_bilinear_half_pixel_rows(x: torch.Tensor, rows: RowSharding, height: int,
+                                      out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``upsample_bilinear_half_pixel`` on this rank's rows, NCHW: ``x`` (B, C, n, w)
+    holds this rank's ``rows.block(height)`` of a map of global ``height``; returns this
+    rank's ``rows.block(out_hw[0])`` of the (B, C, H, W) float32 output. The source rows
+    those output rows read are fetched (``fetch_rows``), the H step takes each row's
+    two taps from that window and the W step is ``F.interpolate`` at the rows' own
+    height (weights 1 and 0 on the H axis); equal to the whole call within float32
+    rounding."""
+    h_out, w_out = out_hw
+    windows = half_pixel_windows(rows.size, height, h_out)
+    win = fetch_rows(x, rows, height, windows).float()
+    r0, r1 = rows.block(h_out)
+    if r1 == r0:  # an empty window: the empty output, joined to the exchange's node
+        return win[:, :, :, :1].expand(-1, -1, -1, w_out)
+    lo = windows[rows.index][0]
+    i0, i1, l0, l1 = (torch.tensor(t[r0:r1], device=win.device)
+                      for t in half_pixel_taps(height, h_out))
+    y = win[:, :, i0 - lo] * l0[:, None] + win[:, :, i1 - lo] * l1[:, None]
+    return F.interpolate(y, size=(r1 - r0, w_out), mode="bilinear", align_corners=False)

@@ -14,10 +14,10 @@ one rank is one process on one device, in a process group that
   - ``spatial``: every image is split by height. At each layer an activation of global
     height H is cut into blocks of ceil(H / S) rows over the S ranks of a spatial group
     (``row_block``; the last blocks may be shorter or empty, GSPMD's layout of an uneven
-    dimension). Inside ``spatial_rows`` the trunk's convolutions and pool fetch the rows
-    of their window that other ranks own (``fetch_rows``) and the model gathers its
-    stride-8 logits (``gather_rows``); each rank computes the loss on its band of label
-    rows, and BatchNorm, the losses' counts and the gradients reduce over every rank of
+    dimension). Inside ``spatial_rows`` the trunk's convolutions and pools fetch the
+    rows of their window that other ranks own (``fetch_rows``) and the model gathers its
+    stride-8 logits (``gather_rows``; DeepLabv3 instead upsamples its own band of
+    input-size rows); each rank computes the loss on its band of label rows, and BatchNorm, the losses' counts and the gradients reduce over every rank of
     the mesh (``Mesh.group``). The evaluation instead splits only its eval head's output
     rows (``ops/kernels/eval_fused.py::multiscale_argmax_hist_spatial``): each rank of a
     spatial group runs the whole forward there.
@@ -334,11 +334,11 @@ _ROWS: Optional[RowSharding] = None
 
 @contextlib.contextmanager
 def spatial_rows(mesh: Optional[Mesh], height: int) -> Iterator[None]:
-    """Inside the block, the models' forwards (``models/layers.py``) take this rank's
-    rows of images of global ``height`` (``row_block`` of the spatial index) and return
-    the gathered stride-8 logits; each layer's global height follows from ``height``,
-    so no collective asks for it. A mesh without a spatial axis (or None) leaves the
-    forwards as they are."""
+    """Inside the block, the models' forwards (``models/``) take this rank's rows of
+    images of global ``height`` (``row_block`` of the spatial index) and return the
+    gathered stride-8 logits (DeepLabv3: this rank's rows of its input-size logits);
+    each layer's global height follows from ``height``, so no collective asks for it. A
+    mesh without a spatial axis (or None) leaves the forwards as they are."""
     global _ROWS
     rows = mesh.rows(height) if mesh is not None and mesh.spatial > 1 else None
     prev, _ROWS = _ROWS, rows

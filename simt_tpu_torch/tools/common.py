@@ -7,9 +7,9 @@ Several ranks, one process each: every process runs the same command with
 ``--coordinator host:port --num-processes N --process-id i`` (``apply_device`` joins
 the process group) and the mesh's ``--mesh-data D --mesh-spatial S``, with ``D * S =
 N``. The trainers split the global batch over the data axis and each image's rows over
-the spatial axis (the ResNet-101 models; DeepLabv3 and DeepLab-VGG raise, ROADMAP
-A-4c); ``tools/test.py`` splits the images over the data axis and each eval head's
-output rows over the spatial axis.
+the spatial axis (every model: the trunk, the heads and the loss); ``tools/test.py``
+splits the images over the data axis and each eval head's output rows over the spatial
+axis.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "this, split across the ranks")
     parser.add_argument("--mesh-spatial", type=int, default=None,
                         help="spatial degree: each image's rows split across the ranks "
-                             "(training: the ResNet-101 models' trunk and loss; "
+                             "(training: the model's trunk, heads and loss; "
                              "evaluation: the eval head's output rows)")
     parser.add_argument("--coordinator", type=str, default=None,
                         help="host:port of rank 0, where the process group meets")

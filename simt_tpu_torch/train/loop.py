@@ -213,16 +213,9 @@ def train(
     in-loop ``eval_fn`` must give every rank the same mIoU (``evaluate`` shards over
     the ranks and sums their histograms). On a spatial axis above 1 an injected
     ``batch_iter`` yields this rank's data block whole, and the loop keeps the rank's
-    rows; the ResNet-101 models train there (DeepLabv3 and DeepLab-VGG raise: ROADMAP
-    A-4c).
+    rows; every arch trains there.
     """
     dev = resolve_device(device)
-    if cfg.mesh.spatial_axis > 1 and cfg.model.arch in ("deeplabv3", "deeplab_vgg"):
-        raise ValueError(
-            f"spatial_axis={cfg.mesh.spatial_axis}: H-sharded training of "
-            f"{cfg.model.arch} (its strided 3x3s, image pooling and half-pixel upsample "
-            "split by rows) is ROADMAP A-4c; the ResNet-101 models (deeplab_multi, "
-            "deeplab_single) train over the spatial axis")
     mesh = build_mesh(cfg, dev)
     if mesh is not None:
         dev = mesh.device

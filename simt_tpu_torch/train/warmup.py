@@ -20,8 +20,10 @@ Over a mesh of several ranks (``parallel/mesh.py``) the step is the global batch
 BatchNorm takes global batch statistics, each CE mean is this rank's sum over the
 global count, the gradients are summed over every rank of the mesh in one
 ``all_reduce`` (``grad_sync``) after the last sub-batch, and the metrics are the
-global values. On the spatial axis the ResNet-101 models run on the rank's rows inside
-``spatial_rows`` and each CE covers the rank's band of label rows (``simt.py``).
+global values. On the spatial axis every model runs on the rank's rows inside
+``spatial_rows`` and each CE covers the rank's band of label rows (``simt.py``):
+gathered stride-8 logits through ``upsample_ce(band=)``, DeepLabv3's own band of
+input-size logits through the plain masked CE.
 
 The step never waits for the card: the metrics come back as 0-d tensors.
 """
@@ -99,8 +101,10 @@ class WarmupStep:
         # A single-output model (DeepLabv3) is both heads (JAX warmup.py:75-78).
         x1, x2 = ys if isinstance(ys, tuple) else (ys, ys)
         x1, x2 = x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)
-        if band is None and x1.shape[1:3] == label.shape[1:]:
-            # Logits already at the input's size: plain masked CE, no upsample.
+        if x1.shape[1:3] == label.shape[1:]:
+            # Logits already at the input's size (DeepLabv3; on the spatial axis its
+            # rows forward gives this rank's band of them, exactly its label rows):
+            # plain masked CE, this rank's sum over the global count.
             return (cross_entropy_2d(x1, label, ignore_label=ignore, group=group),
                     cross_entropy_2d(x2, label, ignore_label=ignore, group=group))
         chunk = cfg.simt.loss_chunk_rows

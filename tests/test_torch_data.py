@@ -243,8 +243,10 @@ def test_crop_cache_hit_equals_miss_and_mtime_misses(fixture_root, tmp_path):
     assert len(list(cache.glob("*.npy"))) == 2 * len(plain) + 1
     np.testing.assert_array_equal(item["label"], plain.get(0)["label"])
     assert set(np.unique(item["label"])) <= {0, 255}
-    # A truncated entry (a writer that died) is recomputed and rewritten.
-    victim = files[0]
+    # A truncated entry (a writer that died) is recomputed and rewritten: the regenerated
+    # label's new entry, which the next pass reads (sample 0's old label entry is stale
+    # and never read again, so it cannot be the victim).
+    victim = next(p for p in cache.glob("*.npy") if p not in files)
     data = victim.read_bytes()
     victim.write_bytes(data[: len(data) // 2])
     for i in range(len(plain)):

@@ -99,6 +99,22 @@ def test_long_run_tools_default_to_cuda_and_raise_without_it(tmp_path, capsys):
     assert not os.listdir(tmp_path)  # nothing ran, nothing written
 
 
+def test_game_calibration_and_eval_variant_tools_default_to_cuda(tmp_path, capsys):
+    _needs_a_host_without_a_card()
+    from simt_tpu_torch.tools import calibrate, eval_variants, tgame
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        tgame.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tgame.run_game(*tgame.toy_problem(), steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        calibrate.main(["0", "--smoke", "--out", str(tmp_path / "p_{seed}.json")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_variants.main(["--smoke"])
+    assert capsys.readouterr().out == ""
+    assert not os.listdir(tmp_path)  # nothing ran, nothing written
+
+
 def test_kernel_needs_a_card_and_never_falls_back():
     from simt_tpu_torch.ops.kernels import _build, eval_fused
 
