@@ -18,7 +18,17 @@ Phases (any failure exits non-zero before the last line is printed):
      within 2e-5 H W; B1 1 a fused or split call, none unfused, B4 66 a call) and
      ``tools/tgame.py`` on the card (the toy problem's game for 300 steps under the
      verbatim and paper-faithful forces, finite, T's distance printed; 20 verbatim steps
-     against the CPU's, T within 1e-4);
+     against the CPU's, T within 1e-4); then the profiling tools in this process, before
+     any phase whose children import torch (``phase_profile_tools``): ``tools/roofline.py``
+     at batch 1 and 2 (the step's FLOPs and computed bytes counted on a CPU twin, wall
+     and device ms, mfu, mfu_device, the floors), ``tools/profile_trace.py`` of the step
+     (device ms by kernel family; the families sum to the total, "other" at most 10% of
+     it, the total within 10% of ``timing.profile_steps``' reading of the same step) and
+     of the student's forward + backward (B4/B5 59/26 a call), ``tools/profile_step.py``,
+     ``profile_model.py``, ``profile_trunk.py`` and ``profile_layer3.py`` (its fused rows
+     through B6/B7, its module rows through B4/B5), every SimT step B2/B3/B4/B5
+     1/1/92/26, every B4-B7 launch on wgmma, no busy share, mfu or mfu_device above
+     1.05; each tool's JSON line printed;
   2. kernels vs plain, on the card: the eval head (B1) at the eval path's shapes
      (65x129 + 81x161 logits, 19 classes, -> 1024x2048; batch 1 and 2; warmup's 1x1
      zero operand; iid gt and 64x64 regions aligned to the warps and shifted off them)
@@ -174,7 +184,9 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import functools
 import importlib
+import itertools
 import json
 import math
 import multiprocessing
@@ -197,6 +209,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from simt_tpu_torch.config import (ModelConfig, OptimConfig, SimTConfig,  # noqa: E402
                                    TrainConfig)
 from simt_tpu_torch.data import device_prefetch, pipeline  # noqa: E402
+from simt_tpu_torch.device import PEAK_BF16_FLOP_S, PEAK_BYTES_S  # noqa: E402
 from simt_tpu_torch.data.synthetic import make_cityscapes_fixture, synthetic_batch  # noqa: E402
 from simt_tpu_torch.eval import evaluate  # noqa: E402
 from simt_tpu_torch.models import (DeeplabSingle, DeeplabVGG, DeepLabv3,  # noqa: E402
@@ -209,15 +222,16 @@ from simt_tpu_torch.parallel import (fetch_rows, initialize_multihost,  # noqa: 
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
 from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
-                                  eval_variants, planted_noise, soak, tgame, train_simt,
+                                  eval_variants, flops, planted_noise, profile_layer3,
+                                  profile_model, profile_step, profile_trace,
+                                  profile_trunk, roofline, soak, tgame, train_simt,
                                   train_warmup)
 from simt_tpu_torch.tools.bench_fused_bottleneck import (BNECK, bneck_calls,  # noqa: E402
                                                          bneck_inputs, time_bneck)
-from simt_tpu_torch.tools.bench_conv3x3 import (KERNEL_WORD,  # noqa: E402
-                                                checked_launches, conv_calls, cuda_ms,
-                                                kernel_events, prime_session,
-                                                profile_kernels, profile_steps,
-                                                time_conv, time_launches)
+from simt_tpu_torch.tools.bench_conv3x3 import KERNEL_WORD, conv_calls, time_conv  # noqa: E402
+from simt_tpu_torch.tools.timing import (checked_launches, cuda_ms,  # noqa: E402
+                                         kernel_events, prime_session, profile_kernels,
+                                         profile_steps, time_launches, timed_steps)
 from simt_tpu_torch.tools.bench_eval_fused import KERNEL_WORD as HEAD_WORD  # noqa: E402
 from simt_tpu_torch.tools.bench_eval_fused import bound as head_bound  # noqa: E402
 from simt_tpu_torch.tools.bench_eval_fused import (head_calls, head_inputs,  # noqa: E402
@@ -239,9 +253,7 @@ C = 19
 OUT_HW = (1024, 2048)
 LOGIT_HW = ((65, 129), (81, 161))  # stride-8 maps of the 512x1024 and 640x1280 inputs
 N_IMAGES = 4
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 dense tensor-core flop/s.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOP_S = 989e12
+CUDA = torch.device("cuda")
 
 
 def fail(msg: str) -> None:
@@ -870,7 +882,7 @@ def phase_pipeline(tmp: str, resident: dict) -> dict:
             batches.close()
         # The same step on batches drawn from the pipeline, with the loader stopped: what
         # running the loader beside the step costs the step.
-        drawn_ms, _ = timed_steps(step, state, drawn, n=PIPE_STEPS)
+        drawn_ms = timed_steps(step, state, cycled(drawn), 0, PIPE_STEPS, CUDA, None)
         print(f"main path: SimT step from build_loader ({name}; {pcfg.data.num_workers} "
               f"process workers, native preprocessing, device_prefetch), full width, batch "
               f"1, 512x1024: {PIPE_STEPS} steps, {wall_ms:.3f} ms per step, "
@@ -1664,13 +1676,9 @@ def check_counts(path: str, launches: dict, want: dict) -> None:
         fail(f"{path}: launches {launches}, want {want}")
 
 
-def timed_steps(step, state, batches, n: int = TIMED_STEPS, first: int = 0):
-    """``n`` steps on ``batches[first:]`` (cyclic): (wall ms per step, their metrics)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = [step(state, batches[(first + i) % len(batches)]) for i in range(n)]
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e3, metrics
+def cycled(batches: list, first: int = 0):
+    """``next_batch`` for ``timing.timed_steps``: ``batches[first:]``, then round again."""
+    return functools.partial(next, itertools.islice(itertools.cycle(batches), first, None))
 
 
 def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
@@ -1683,7 +1691,9 @@ def drive_train_path(path: str, step, state, batches, line, want: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     step.spans = []
-    wall_ms, timed = timed_steps(step, state, batches, first=2)
+    timed = []
+    wall_ms = timed_steps(step, state, cycled(batches, 2), 0, TIMED_STEPS, CUDA, None,
+                          timed)
     launches, variants = read_counts(), read_variants()
     parts = {}
     for name, start, end in step.spans:
@@ -1908,7 +1918,8 @@ def conv2_ab(path: str, step, state, batches) -> dict:
         ctx = conv2_through(cudnn_conv2) if mode == "cudnn" else contextlib.nullcontext()
         with ctx:
             step(state, batches[0])  # cuDNN plans, allocator
-            wall[mode].append(timed_steps(step, state, batches)[0])
+            wall[mode].append(timed_steps(step, state, cycled(batches), 0, TIMED_STEPS,
+                                          CUDA, None))
     dev = {"kernels": profile_steps(step, state, batches, report=False)}
     with conv2_through(cudnn_conv2):
         dev["cudnn"] = profile_steps(step, state, batches, report=False)
@@ -3097,6 +3108,14 @@ class StepLaunches:
         self.calls = 0
         self.launches = dict.fromkeys(COUNTED, 0)
 
+    @property
+    def spans(self):
+        return self.step.spans
+
+    @spans.setter
+    def spans(self, value):  # the step's own CUDA-event spans (SimTStep.spans)
+        self.step.spans = value
+
     def __call__(self, state, batch):
         before = read_counts()
         metrics = self.step(state, batch)
@@ -3269,6 +3288,123 @@ def phase_tgame(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------------
+# The profiling tools
+# ---------------------------------------------------------------------------------
+
+ROOF_STEPS = 10  # wall and profiled steps of each roofline reading
+TRACE_REPS = 3  # profiled calls of each profile_trace target
+TOL_TRACE = 0.10  # profile_trace's step device ms against timing.profile_steps'
+MAX_OTHER = 0.10  # "other"'s share of the step's device ms
+LAYER3_REPS, LAYER3_N = 20, 3  # profile_layer3: blocks a chain, calls a row
+TOOL_N = 3  # timed calls a row of profile_step, profile_model and profile_trunk
+# Launches a call of the student's forward + backward of the dummy loss (profile_trace
+# --what fwdbwd): B4 for the 33 forwards and layers 3-4's input gradients, B5 for theirs.
+FWDBWD_COUNTS = {"conv3x3_fwd": N_CONV2 + N_CONV2_L34, "conv3x3_wgrad": N_CONV2_L34}
+
+
+def _check_shares(tool: str, rows: dict) -> None:
+    """Fails unless every row's busy share is at most roofline.MAX_SHARE."""
+    high = {k: r["busy"] for k, r in rows.items() if r["busy"] > roofline.MAX_SHARE}
+    if high:
+        fail(f"{tool}: busy share above {roofline.MAX_SHARE}: {high}")
+
+
+def _check_families(what: str, got: dict) -> None:
+    """Fails unless the families partition the traced device total."""
+    fam_ms = sum(f["ms"] for f in got["families"].values())
+    print(f"profile_trace {what}: families sum {fam_ms:.6f} ms, device total "
+          f"{got['device_ms']:.6f} ms a call")
+    if abs(fam_ms - got["device_ms"]) > 1e-9 * got["device_ms"]:
+        fail(f"profile_trace {what}: the families sum to {fam_ms}, not {got['device_ms']}")
+
+
+def phase_profile_tools(smi: str) -> dict:
+    """The profiling tools in this process at full width (ResNet-101, 19 + 15 classes,
+    512x1024, bf16), before any phase whose children import torch (a process's profiler
+    records nothing after such children exit): ``roofline`` at batch 1 and 2,
+    ``profile_trace`` of the step (held to ``timing.profile_steps``' reading of the same
+    step within TOL_TRACE, "other" at most MAX_OTHER of it) and of the student's forward
+    + backward (launches FWDBWD_COUNTS a call), ``profile_step``, ``profile_model``,
+    ``profile_trunk`` and ``profile_layer3`` (B6 2 and B7 1 a rep of the fused rows, B4 3
+    and B5 1 of the module rows). Every SimT step the tools run launches B2/B3/B4/B5
+    1/1/92/26, every B4-B7 launch on wgmma; the families sum to each trace's total; no
+    busy share, mfu or mfu_device above 1.05. Each tool prints its JSON line."""
+    t0 = time.perf_counter()
+    steps = []
+
+    def counted(cfg, *a, **kw):
+        steps.append(StepLaunches(make_simt_step(cfg, *a, **kw)))
+        return steps[-1]
+
+    def clocked(label: str, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(*args)
+        print(f"profile tools: {label} took {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+        return res
+
+    out = {}
+    for bs in (1, 2):  # roofline's CPU counts first: their twin's step is no card step
+        clocked(f"flops.step_work('step', batch_size={bs}) on "
+                f"{torch.get_num_threads()} CPU threads",
+                lambda: flops.step_work("step", batch_size=bs))
+    reset_counts()
+    with mock.patch.object(bench, "make_simt_step", counted):
+        for bs in (1, 2):
+            out[f"roofline_bs{bs}"] = clocked(f"roofline at batch {bs}", roofline.main,
+                                              ["--batch-size", str(bs), "--n",
+                                               str(ROOF_STEPS)])
+        fn = clocked("profile_trace's step", profile_trace.target, "step", CUDA)
+        got = clocked("profile_trace --what step", profile_trace.trace, fn, CUDA,
+                      TRACE_REPS, 30)
+        ref = profile_steps(lambda st, b: fn(), None, [None], report=False)
+        del fn
+        print(json.dumps({"metric": "profile_trace_step_bs1_512x1024", **got,
+                          "profile_steps_ms": ref}))
+        out["trace_step"] = got
+        out["step_parts"] = clocked("profile_step", profile_step.main,
+                                    ["--n", str(TOOL_N)])
+    check_per_step("profile tools' SimT steps", steps, PAR_COUNTS["SimT"])
+    check_wgmma("profile tools' SimT steps", read_variants())
+    _check_families("step", got)
+    other = got["families"].get(profile_trace.OTHER, {"share": 0.0})["share"]
+    print(f"profile_trace step: device {got['device_ms']:.3f} ms a step, profile_steps "
+          f"{ref:.3f} ms; other {other:.4f} of it: {got['other']}")
+    if abs(got["device_ms"] - ref) > TOL_TRACE * ref:
+        fail(f"profile_trace step: {got['device_ms']:.3f} device ms a step, "
+             f"profile_steps {ref:.3f}: more than {TOL_TRACE} apart")
+    if other > MAX_OTHER:
+        fail(f"profile_trace step: other holds {other:.3f} of the step: {got['other']}")
+    _check_shares("profile_step", out["step_parts"]["rows"])
+
+    reset_counts()
+    got = clocked("profile_trace --what fwdbwd", profile_trace.main,
+                  ["--what", "fwdbwd", "--reps", str(TRACE_REPS), "--top", "20"])
+    check_counts("profile_trace fwdbwd", read_counts(),
+                 {k: v * got["calls"] for k, v in FWDBWD_COUNTS.items()})
+    _check_families("fwdbwd", got)
+    out["trace_fwdbwd"] = got
+    for tool in (profile_model, profile_trunk):
+        name = tool.__name__.rsplit(".", 1)[1]
+        out[name] = clocked(name, tool.main, ["--n", str(TOOL_N)])
+        _check_shares(name, out[name]["rows"])
+    check_wgmma("profile_trace fwdbwd, profile_model, profile_trunk", read_variants())
+
+    reset_counts()
+    res = clocked("profile_layer3", profile_layer3.main,
+                  ["--reps", str(LAYER3_REPS), "--n", str(LAYER3_N)])
+    per_row = (1 + 2 * LAYER3_N + 3) * LAYER3_REPS  # reps a row: warm-up, wall, profiled
+    check_counts("profile_layer3", read_counts(),
+                 {"bottleneck_fwd": 2 * per_row, "bottleneck_bwd": per_row,
+                  "conv3x3_fwd": 3 * per_row, "conv3x3_wgrad": per_row})
+    check_wgmma("profile_layer3", read_variants())
+    _check_shares("profile_layer3", res["rows"])
+    out["layer3"] = res
+    print(f"profile tools: the phase took {time.perf_counter() - t0:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3293,6 +3429,9 @@ def main() -> int:
     phase_eval_variants(smi)
     torch.cuda.empty_cache()
     phase_tgame(smi)
+    # The profiling tools before any phase whose children import torch.
+    phase_profile_tools(smi)
+    torch.cuda.empty_cache()
     worst = phase_kernel_vs_plain(rng)
     conv_worst = phase_conv_kernels_vs_plain()
     phase_conv_library_free()

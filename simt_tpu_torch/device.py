@@ -10,6 +10,13 @@ from typing import Union
 
 import torch
 
+# Dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): bf16 tensor-core
+# and float32 (non-tensor-core) flop/s, HBM3 bytes/s. The kernels' bounds, their
+# schedules and the profiling tools' floors and MFU read these.
+PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
+PEAK_BYTES_S = 3.35e12
+
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises if it names CUDA and no card is usable."""

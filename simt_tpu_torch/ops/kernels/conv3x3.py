@@ -41,13 +41,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...device import PEAK_BF16_FLOP_S, PEAK_BYTES_S
 from . import _build
 
-# SMs of an H100 SXM, and its dense bf16 tensor-core and memory rates (NVIDIA's data
-# sheet): the schedules below size work to whole waves of SMs.
+# SMs of an H100 SXM: the schedules below size work to whole waves of SMs, at its peaks.
 _NUM_SMS = 132
-_PEAK_BF16_FLOP_S = 989e12
-_PEAK_BYTES_S = 3.35e12
 # The first port's B5 (float32, bf16 off the vector width): the grid holds about
 # _WGRAD_BLOCKS_PER_SM blocks for each SM.
 _WGRAD_BLOCKS_PER_SM = 4
@@ -204,8 +202,8 @@ def wgrad_tiles(pixels: int, c: int, o: int, taps: int = 9) -> WgradTiles:
             per = math.ceil(chunks / want)
             t = WgradTiles(bc, bo, math.ceil(chunks / per), per * WGRAD_PIX, c_tiles,
                            o_tiles, taps)
-            mma_s = t.waves * per * 2 * WGRAD_PIX * bc * bo / (_PEAK_BF16_FLOP_S / _NUM_SMS)
-            sum_s = 0.0 if t.splits == 1 else 2 * t.splits * taps * c * o * 4 / _PEAK_BYTES_S
+            mma_s = t.waves * per * 2 * WGRAD_PIX * bc * bo / (PEAK_BF16_FLOP_S / _NUM_SMS)
+            sum_s = 0.0 if t.splits == 1 else 2 * t.splits * taps * c * o * 4 / PEAK_BYTES_S
             key = (mma_s + sum_s, t.splits, -bo)
             if best is None or key < best[0]:
                 best = (key, t)

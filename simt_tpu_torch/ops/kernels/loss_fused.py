@@ -54,6 +54,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ...device import PEAK_BYTES_S, PEAK_F32_FLOP_S
 from ..interp import interp_taps
 from . import _build
 
@@ -641,11 +642,9 @@ class SimTLossCore(torch.autograd.Function):
 _FWD_PER_PIXEL_CH = 3 * 2 + 14 * 2  # per head channel, both heads
 _BWD_PER_PIXEL_CH = 3 * 2 + 29 * 2 + 4 * 2
 
-# Peaks of an H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32 (non-tensor-core)
-# flop/s, and the special-function units' results/s (16 a clock on each of 132 SMs at
-# the 1.98 GHz boost clock: expf, logf and reciprocals).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
+# The special-function units' results/s of an H100 SXM (16 a clock on each of 132 SMs at
+# the 1.98 GHz boost clock: expf, logf and reciprocals); its other peaks are
+# ``device.py``'s.
 PEAK_SFU_S = 16 * 132 * 1.98e9
 
 

@@ -44,7 +44,7 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +54,7 @@ from ..device import resolve_device
 from ..models import ResNetMulti, init_weights
 from ..train import build_loader, create_simt_state, make_simt_step
 from ..train.teacher_cache import TeacherCache
+from .timing import profile_steps, timed_steps
 
 BASELINE_STEPS_PER_SEC = 1.29
 RESNET101 = (3, 4, 23, 3)
@@ -88,27 +89,6 @@ def simt_setup(dev: torch.device, *, layers: Sequence[int] = RESNET101):
     return cfg, state, make_simt_step(cfg)
 
 
-def sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def timed_steps(step, state, next_batch: Callable[[], Dict], warm: int, steps: int,
-                dev: torch.device, key: str) -> float:
-    """``warm`` steps, then the wall ms per step over ``steps`` more, each run ended by
-    reading the last step's ``key`` on the host (and a synchronize on the card)."""
-    for _ in range(warm):
-        metrics = step(state, next_batch())
-    float(metrics[key])
-    sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        metrics = step(state, next_batch())
-    float(metrics[key])
-    sync(dev)
-    return (time.perf_counter() - t0) / steps * 1e3
-
-
 def device_report(step, state, batches, wall_ms: float, dev: torch.device,
                   what: str = "step") -> Optional[float]:
     """Prints the profiler's device ms per ``what`` and the busy share (device ms over
@@ -116,8 +96,6 @@ def device_report(step, state, batches, wall_ms: float, dev: torch.device,
     if dev.type != "cuda":
         log(f"device ms per {what}: not measured (CPU run); wall {wall_ms:.3f} ms")
         return None
-    from .bench_conv3x3 import profile_steps
-
     device_ms = profile_steps(step, state, batches, print_fn=log)
     log(f"device ms per {what} (profiler): {device_ms:.3f}; wall ms per {what}: "
         f"{wall_ms:.3f}; busy share {device_ms / wall_ms:.3f}; "

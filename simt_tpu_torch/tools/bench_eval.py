@@ -26,7 +26,8 @@ from ..device import resolve_device
 from ..eval.evaluate import make_eval_fn
 from ..models import ResNetMulti, init_weights
 from . import bench
-from .bench import RESNET101, device_report, dtypes, line, sync
+from .bench import RESNET101, device_report, dtypes, line
+from .timing import sync
 
 BASELINE_IMG_PER_SEC = 1.55
 

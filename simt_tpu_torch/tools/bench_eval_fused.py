@@ -21,19 +21,19 @@ and 640x1280 inputs), gt 1x1024x2048. Gt maps (``--gt``):
 
 For each map it prints ``ms``, the wrapper back to back (CUDA events), ``kernel_ms`` the
 device time of the call's ``eval_fused`` kernel (profiler, held to the call's device
-time by events: ``bench_conv3x3.checked_launches``), ``device_ops`` and ``per_launch``
+time by events: ``timing.checked_launches``), ``device_ops`` and ``per_launch``
 (every device operation of one call in launch order: a fill would show here) and
 ``host_us``; and the bound from ``work()`` with the map's counted pixels and gt width.
 This package is timed as the eval path calls it (uint8 gt, ``out=`` the running
 histogram: one device operation) and with int32 gt; a package without ``out=`` (the first
-port) as its JAX-shaped call with int32 gt. Timing is ``tools/bench_conv3x3.py``'s.
+port) as its JAX-shaped call with int32 gt. Timing is ``tools/timing.py``'s.
 
 ``--package-root DIR[,DIR...]`` times other checkouts' packages (for example the parent
 commit unpacked under ``build/``, or copies with one part of the kernel changed) in turns
 with this one on the same inputs: the others, this, this, the others in reverse order,
 one JSON line each; a last line holds every package's histograms equal bit for bit on
 every map (or the tool exits non-zero). ``--events`` times each call by CUDA events
-alone (``bench_conv3x3.busy_ms``: the card kept busy, so the call's device time), which
+alone (``timing.busy_ms``: the card kept busy, so the call's device time), which
 is quick enough for many packages. Needs a card: it exits on the CPU.
 """
 
@@ -53,7 +53,7 @@ import torch
 
 from ..ops.interp import interp_taps
 from ..ops.metrics import fast_hist
-from .bench_conv3x3 import busy_ms, time_launches
+from .timing import busy_ms, time_launches
 from .bench_fused_bottleneck import _HERE, package
 from .bench_loss_fused import label_map
 

@@ -28,7 +28,7 @@ reps + 1.
 
 ``--kernels`` (a card only) times ``bottleneck_fwd`` and ``bottleneck_bwd`` at the four
 trunk identity-block geometries of a 512x1024 crop (``BNECK``), ``--iters`` calls each,
-with ``tools/bench_conv3x3.py``'s clocks (``time_bneck``): ``ms``, the wrapper back to
+with ``tools/timing.py``'s clocks (``time_bneck``): ``ms``, the wrapper back to
 back by CUDA events (weight packing and the host's pace included); ``kernel_ms``, the
 device time of the call's ``bneck_`` kernels (profiler); the launches a call, and every
 launch's device ms in launch order (``per_launch``). It prints one JSON line.
@@ -54,7 +54,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..device import resolve_device
-from .bench_conv3x3 import checked_launches, cuda_ms
+from .timing import checked_launches, cuda_ms
 
 # (name, H, W, trunk channels Ct, planes P, dilation) of the trunk's identity blocks at
 # a 512x1024 crop.

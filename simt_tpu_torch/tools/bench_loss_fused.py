@@ -22,12 +22,12 @@ classes), labels 1x512x1024, T 2x34x19. Label maps (``--labels``):
 For each map and each of ``loss_core_fwd`` / ``loss_core_bwd`` it prints ``ms``, the
 wrapper back to back (CUDA events: allocations, fills and the host's pace included);
 ``kernel_ms``, the device time of the call's ``loss_`` kernels (profiler, held to the
-call's device time by events, ``busy_ms``: ``bench_conv3x3.checked_launches``);
+call's device time by events, ``busy_ms``: ``timing.checked_launches``);
 ``launches``, those kernels a call; ``per_launch``, every device operation of one call
 in launch order with its device ms (fills and copies included); and ``host_us``, the
 host cost of a call; and the device time of the package's full-width SimT step a step (profiler), with
 its loss core kernels' share. Timing is
-``tools/bench_conv3x3.py``'s. One JSON line a package timed.
+``tools/timing.py``'s. One JSON line a package timed.
 
 ``--package-root DIR`` times another checkout's package (for example the parent commit
 unpacked under ``build/``) in turns with this one on the same inputs: DIR, this, this,
@@ -50,7 +50,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from .bench_conv3x3 import profile_kernels, short, time_launches
+from .timing import profile_kernels, short, time_launches
 from .bench_fused_bottleneck import _HERE, package
 
 _ROOT = __package__.split(".")[0]  # this module's own package, run with -m too
@@ -196,7 +196,7 @@ def loss_calls(loss_fused, xcat, label, conf, t1, t2, g) -> dict:
 
 
 def time_loss(calls: dict, iters: int = 20) -> dict:
-    """{op: times} of ``loss_calls``: ``bench_conv3x3.time_launches`` on the call's
+    """{op: times} of ``loss_calls``: ``timing.time_launches`` on the call's
     ``loss_`` kernels."""
     return time_launches(calls, KERNEL_WORD, iters)
 

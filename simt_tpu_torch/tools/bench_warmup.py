@@ -25,7 +25,8 @@ from ..models import ResNetMulti, init_weights
 from ..train import create_warmup_state, make_warmup_step
 from . import bench
 from .bench import (BASELINE_STEPS_PER_SEC, RESNET101, TRAIN_HW, device_report, dtypes,
-                    line, timed_steps)
+                    line)
+from .timing import timed_steps
 
 
 def run(*, hw: Tuple[int, int] = TRAIN_HW, layers: Sequence[int] = RESNET101,

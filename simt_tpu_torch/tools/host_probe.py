@@ -7,7 +7,7 @@ The port's SimT step is bound by the host (its busy share is the profiler's devi
 over the wall ms), so its steps/s follow the speed of the host CPU. This builds the
 bench's state and step (``bench.simt_setup``: ResNet-101, 19 + 15 classes, bf16 autocast
 on the card) on the synthetic batch of seed 0 and, ``--rounds`` times, times a fixed
-pure-Python loop (no torch call) and 20 steps (``bench.timed_steps``, 1 warm-up step);
+pure-Python loop (no torch call) and 20 steps (``timing.timed_steps``, 1 warm-up step);
 then one profiler session (``bench.device_report``) and the same rounds again. A loop
 whose time varies as the steps' rate does shows the host's own speed varying; rates
 that drop after the session show what the session left behind.
@@ -32,6 +32,7 @@ import torch
 from ..data.synthetic import synthetic_batch
 from ..device import resolve_device
 from . import bench
+from .timing import timed_steps
 
 LOOP_N = 3_000_000  # ~0.2-0.4 s of the host's Python a round
 STEPS = 20  # the bench's timed steps
@@ -62,7 +63,7 @@ def run(args, *, layers: Sequence[int] = bench.RESNET101,
             bench.device_report(step, state, [batch], 1e3 / rates["before"][-1], dev)
         for _ in range(args.rounds):
             loops[when].append(round(python_loop(loop_n), 4))
-            ms = bench.timed_steps(step, state, lambda: batch, 1, steps, dev, "loss")
+            ms = timed_steps(step, state, lambda: batch, 1, steps, dev, "loss")
             rates[when].append(round(1e3 / ms, 3))
             bench.log(f"{when}: python loop {loops[when][-1]} s, {rates[when][-1]} steps/s")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

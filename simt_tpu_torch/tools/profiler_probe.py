@@ -8,7 +8,7 @@ Runs ``--sessions`` short profiler sessions, each around one small kernel, then 
 ``--children`` spawned processes (each importing torch with ``--torch-children``; the
 loader's workers do, since they re-import the parent's main script) and waits for them
 to exit and ``--wait`` seconds more, then runs the sessions again, without and with the
-primer that opens ``bench_conv3x3``'s sessions (``prime_session``). Prints one JSON
+primer that opens ``timing.py``'s sessions (``prime_session``). Prints one JSON
 line: the sessions that recorded no CUDA event of the kernel, before and after, and the
 card's name.
 ``chip_smoke.py`` and the bench tools read kernel times and device operations from such
@@ -33,12 +33,12 @@ def _child(import_torch: bool) -> None:
 
 def empty_sessions(n: int, pad_s: float = 0.05, primer: bool = False) -> int:
     """How many of ``n`` profiler sessions around one small kernel record no CUDA event
-    of it (``bench_conv3x3.profile_kernels``'s session: a host wait at each end; with
+    of it (``timing.profile_kernels``'s session: a host wait at each end; with
     ``primer``, its primer of spin kernels first, whose records do not count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .bench_conv3x3 import kernel_events, prime_session
+    from .timing import kernel_events, prime_session
 
     x = torch.ones(1024, device="cuda")
     empty = 0

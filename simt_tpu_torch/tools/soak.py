@@ -14,7 +14,7 @@ reads every metric back on the host at the end of each window of ``--window`` st
   - ``torch.cuda.memory_reserved`` does not grow after the warm-up (the largest growth
     read at a window's end, in bytes; 0 passes);
   - the slowest window holds the floor: ``--min-rate`` steps/s, or by default 0.9 x
-    the steps/s that ``bench.timed_steps`` reads on the same state just before the
+    the steps/s that ``timing.timed_steps`` reads on the same state just before the
     soak (3 warm-up and 20 timed steps). No TPU number serves as the floor.
 
 Run it in a process where no profiler session has run yet: after one, CUPTI stays
@@ -50,6 +50,7 @@ from ..data.synthetic import synthetic_batch
 from ..device import resolve_device
 from ..ops.kernels import _build
 from . import bench
+from .timing import sync, timed_steps
 
 WARM = 3  # warm-up steps before the soak (the JAX tool's)
 BENCH_WARM, BENCH_STEPS = 3, 20  # the bench's resident measure, read for the floor
@@ -79,8 +80,8 @@ def run(args, *, layers: Sequence[int] = bench.RESNET101,
 
     floor = args.min_rate
     if floor is None and cuda:
-        wall_ms = bench.timed_steps(step, state, lambda: batch, BENCH_WARM, BENCH_STEPS,
-                                    dev, "loss")
+        wall_ms = timed_steps(step, state, lambda: batch, BENCH_WARM, BENCH_STEPS,
+                              dev, "loss")
         floor = FLOOR_SHARE * 1e3 / wall_ms
         bench.log(f"soak floor: {FLOOR_SHARE} x the bench's {1e3 / wall_ms:.3f} steps/s "
                   f"({BENCH_WARM} warm-up + {BENCH_STEPS} timed steps) = {floor:.3f}")
@@ -88,7 +89,7 @@ def run(args, *, layers: Sequence[int] = bench.RESNET101,
     for _ in range(WARM):
         metrics = step(state, batch)
     float(metrics["loss"])
-    bench.sync(dev)
+    sync(dev)
     builds = _build.compiles
     reserved = torch.cuda.memory_reserved(dev) if cuda else None
     growth = 0 if cuda else None
@@ -103,7 +104,7 @@ def run(args, *, layers: Sequence[int] = bench.RESNET101,
         for _ in range(n):
             metrics = step(state, batch)
         vals = {k: float(v) for k, v in metrics.items()}  # the readback syncs
-        bench.sync(dev)
+        sync(dev)
         dt = time.perf_counter() - t0
         seconds += dt
         windows.append(round(n / dt, 2))

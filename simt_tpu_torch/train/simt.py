@@ -102,6 +102,21 @@ def _guarded_volume(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, vol, torch.zeros_like(vol))
 
 
+def inner_w_steps(st: SimTState, c: int, o: int, steps: int) -> None:
+    """``steps`` Adam steps of W1/W2 against MSE(W @ T, 0) (trainV2_simt.py:327-339);
+    T's gradients accumulate in its ``.grad`` (:337)."""
+    for _ in range(steps):
+        st.w1.param.grad = None
+        st.w2.param.grad = None
+        w_obj = (_sq(ntm_lib.w_forward(st.w1.param)
+                     @ ntm_lib.ntm_forward(st.t1.param, st.class_dist, c, o))
+                 + _sq(ntm_lib.w_forward(st.w2.param)
+                       @ ntm_lib.ntm_forward(st.t2.param, st.class_dist, c, o)))
+        w_obj.backward()
+        st.w1.opt.step()
+        st.w2.opt.step()
+
+
 # Metrics that accumulate at 1/iter_size (trainV2_simt.py:429-432); the others are the
 # last sub-batch's unscaled values (:438-441 reads the loop variables).
 _ACCUM = ("loss", "loss_seg_p", "loss_seg_y")
@@ -161,14 +176,7 @@ class SimTStep:
         with self._span("inner_w"):
             st.t1.param.grad = None  # optimizer_t.zero_grad(), once per iteration (:317)
             st.t2.param.grad = None
-            for _ in range(s.inner_w_steps):
-                st.w1.param.grad = None
-                st.w2.param.grad = None
-                w_obj = (_sq(ntm_lib.w_forward(st.w1.param) @ ntm(st.t1.param))
-                         + _sq(ntm_lib.w_forward(st.w2.param) @ ntm(st.t2.param)))
-                w_obj.backward()  # the T grads accumulate (:337)
-                st.w1.opt.step()
-                st.w2.opt.step()
+            inner_w_steps(st, c, o, s.inner_w_steps)
             if s.clear_inner_t_grads:
                 st.t1.param.grad = None
                 st.t2.param.grad = None
