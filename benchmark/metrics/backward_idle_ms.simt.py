@@ -1,0 +1,8 @@
+"""backward_idle_ms.simt: device idle ms a SimT step in the host-traced session's gaps
+that begin inside the program's range ``backward``."""
+
+from benchmark.program_spans import idle_ms
+
+
+def read(rec):
+    return idle_ms(rec, "train", ("backward",))

@@ -1,0 +1,8 @@
+"""forward_idle_ms.simt: device idle ms a SimT step in the host-traced session's gaps
+that begin inside the program's ranges ``teacher`` or ``student_forward``."""
+
+from benchmark.program_spans import idle_ms
+
+
+def read(rec):
+    return idle_ms(rec, "train", ("teacher", "student_forward"))

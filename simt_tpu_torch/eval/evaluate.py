@@ -42,6 +42,7 @@ from ..ops.interp import upsample_bilinear_align_corners
 from ..ops.kernels.eval_fused import multiscale_argmax_hist, multiscale_argmax_hist_spatial
 from ..ops.metrics import fast_hist, label_mapping, mean_iou, per_class_iu
 from ..parallel.mesh import Mesh, all_reduce_, world_size
+from ..utils.spans import span
 
 
 def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "simt",
@@ -57,6 +58,8 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
     histograms (``multiscale_argmax_hist_spatial``): the whole batch's histogram on
     each of them.
     ``hist_update(hist, pred, gt)`` -> running histogram.
+    Under a profiler each scale's forward is a range ``simt_tpu_torch.eval_forward``
+    and the head's call ``simt_tpu_torch.eval_head`` (``utils/spans.py``).
     Images are (B, H, W, 3) uint8 BGR (or float32 mean-subtracted) on the model's device.
     """
     if mode not in ("simt", "warmup"):
@@ -66,12 +69,13 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
     @torch.inference_mode()
     def fwd(image: torch.Tensor) -> torch.Tensor:
         """Head-2 logits, known classes, float32 NHWC (evaluate_cityscapes.py:127-133)."""
-        x = normalize_image(image, IMG_MEAN_BGR).permute(0, 3, 1, 2)
-        if x.device.type == "cuda":
-            x = x.contiguous(memory_format=torch.channels_last)
-        out = model(x)
-        out = out[1] if isinstance(out, tuple) else out
-        return out[:, :num_classes].float().permute(0, 2, 3, 1).contiguous()
+        with span("eval_forward"):
+            x = normalize_image(image, IMG_MEAN_BGR).permute(0, 3, 1, 2)
+            if x.device.type == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            out = model(x)
+            out = out[1] if isinstance(out, tuple) else out
+            return out[:, :num_classes].float().permute(0, 2, 3, 1).contiguous()
 
     def scales(image, image_640):
         a = fwd(image)
@@ -95,11 +99,12 @@ def make_eval_fn(model: torch.nn.Module, num_classes: int = 19, mode: str = "sim
     @torch.inference_mode()
     def predict_hist(image, image_640, gt, out=None):
         a, b = scales(image, image_640)
-        if mesh is None or mesh.spatial_group is None:
-            return multiscale_argmax_hist(a, b, gt, out_hw=out_hw,
-                                          num_classes=num_classes, out=out)
-        hist = multiscale_argmax_hist_spatial(a, b, gt, group=mesh.spatial_group,
-                                              out_hw=out_hw, num_classes=num_classes)
+        with span("eval_head"):
+            if mesh is None or mesh.spatial_group is None:
+                return multiscale_argmax_hist(a, b, gt, out_hw=out_hw,
+                                              num_classes=num_classes, out=out)
+            hist = multiscale_argmax_hist_spatial(a, b, gt, group=mesh.spatial_group,
+                                                  out_hw=out_hw, num_classes=num_classes)
         return hist if out is None else out.add_(hist)
 
     def hist_update(hist, pred, gt):

@@ -12,6 +12,8 @@ custom VJP (simt_tpu/ops/conv.py:104-130):
 A gradient is computed only where ``ctx.needs_input_grad`` asks for it, so a frozen
 stage computes no d_weight and an input that needs no gradient gets no d_input. On CPU
 tensors the same structure runs the plain versions (``conv3x3_taps``, ``wgrad_taps``).
+Under a profiler each of the three calls is a range ``simt_tpu_torch.conv3x3``
+(``utils/spans.py``); the backward's run on autograd's thread.
 
 dtypes follow the JAX package: the operands are in the activation's dtype (the caller
 casts the weight, as ``w2.astype(self.dtype)`` at simt_tpu/models/layers.py:162-164),
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import RowSharding, fetch_rows, row_block
+from ..utils.spans import span
 from .kernels.conv3x3 import conv3x3_fwd, conv3x3_taps, conv3x3_wgrad, wgrad_taps
 
 __all__ = ["DilatedConv3x3", "dilated_conv3x3", "conv3x3_taps", "wgrad_taps",
@@ -51,16 +54,22 @@ class DilatedConv3x3(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
         ctx.save_for_backward(x, w)
         ctx.d = d
-        return conv3x3_fwd(x, w, d)
+        with span("conv3x3"):
+            return conv3x3_fwd(x, w, d)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x, w = ctx.saved_tensors
         d = ctx.d
+        dx = dw = None
         with torch.autocast(x.device.type, enabled=False):
             g = _layout(g.to(x.dtype))
-            dx = conv3x3_fwd(g, w, d, flip=True) if ctx.needs_input_grad[0] else None
-            dw = conv3x3_wgrad(x, g, d).to(w.dtype) if ctx.needs_input_grad[1] else None
+            if ctx.needs_input_grad[0]:
+                with span("conv3x3"):
+                    dx = conv3x3_fwd(g, w, d, flip=True)
+            if ctx.needs_input_grad[1]:
+                with span("conv3x3"):
+                    dw = conv3x3_wgrad(x, g, d).to(w.dtype)
         return dx, dw, None
 
 

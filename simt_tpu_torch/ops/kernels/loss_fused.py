@@ -55,6 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...device import PEAK_BYTES_S, PEAK_F32_FLOP_S
+from ...utils.spans import span
 from ..interp import interp_taps
 from . import _build
 
@@ -607,14 +608,16 @@ class SimTLossCore(torch.autograd.Function):
     """The streamed core behind one autograd node: forward ``loss_core_fwd``,
     backward ``loss_core_bwd`` (each the kernel on CUDA tensors, the plain version on
     CPU tensors). Differentiable in ``xcat``, ``t1``, ``t2``; the anchor carries take no
-    gradient. ``band`` as ``loss_core_fwd``'s."""
+    gradient. ``band`` as ``loss_core_fwd``'s. Under a profiler each call is a range
+    ``simt_tpu_torch.loss_core`` (``utils/spans.py``)."""
 
     @staticmethod
     def forward(ctx, xcat, t1, t2, label, conf, num_classes, threshold_high,
                 ignore_label, band=None):
-        out = loss_core_fwd(xcat, label, conf, t1, t2, num_classes=num_classes,
-                            threshold_high=threshold_high, ignore_label=ignore_label,
-                            band=band)
+        with span("loss_core"):
+            out = loss_core_fwd(xcat, label, conf, t1, t2, num_classes=num_classes,
+                                threshold_high=threshold_high, ignore_label=ignore_label,
+                                band=band)
         ctx.save_for_backward(xcat, t1, t2, label, conf)
         ctx.args = (num_classes, threshold_high, ignore_label, band)
         ctx.mark_non_differentiable(*out[1:])
@@ -624,10 +627,11 @@ class SimTLossCore(torch.autograd.Function):
     def backward(ctx, g_sums, *_):
         xcat, t1, t2, label, conf = ctx.saved_tensors
         num_classes, threshold_high, ignore_label, band = ctx.args
-        dx, dt1, dt2 = loss_core_bwd(g_sums, xcat, label, conf, t1, t2,
-                                     num_classes=num_classes,
-                                     threshold_high=threshold_high,
-                                     ignore_label=ignore_label, band=band)
+        with span("loss_core"):
+            dx, dt1, dt2 = loss_core_bwd(g_sums, xcat, label, conf, t1, t2,
+                                         num_classes=num_classes,
+                                         threshold_high=threshold_high,
+                                         ignore_label=ignore_label, band=band)
         return dx, dt1, dt2, None, None, None, None, None, None
 
 

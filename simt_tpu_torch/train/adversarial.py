@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,7 @@ from ..data.pipeline import normalize_image, normalize_label
 from ..ops.interp import upsample_bilinear_align_corners
 from ..ops.losses import cross_entropy_2d
 from ..ops.schedules import poly_lr
+from ..utils.spans import Events, span
 from .state import WarmupState
 
 D_LR = 1e-4
@@ -81,24 +82,13 @@ class AdversarialWarmupStep:
     ``iter_size`` axis (the JAX step takes one sub-batch).
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
-    end)`` CUDA events around its parts (forward, backward, optimizer, discriminator).
+    end)`` CUDA events around its parts (forward, backward, optimizer, discriminator);
+    under a profiler each part is also a range (``utils/spans.py``).
     """
 
     def __init__(self, cfg):
         self.cfg = cfg
-        self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-    @contextlib.contextmanager
-    def _span(self, name: str):
-        if self.spans is None:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.spans.append((name, start, end))
+        self.spans: Optional[Events] = None
 
     def __call__(self, st: WarmupState, d: DiscriminatorState,
                  batch: Dict) -> Dict[str, torch.Tensor]:
@@ -119,7 +109,7 @@ class AdversarialWarmupStep:
 
         st.model_opt.zero_grad(set_to_none=True)
         with _no_grad_for(list(d.model.parameters())):
-            with self._span("forward"):
+            with span("forward", self.spans):
                 ys = st.model(image.permute(0, 3, 1, 2))
                 x1, x2 = ys if isinstance(ys, tuple) else (ys, ys)
                 p1 = upsample_bilinear_align_corners(x1.permute(0, 2, 3, 1), hw)
@@ -129,12 +119,12 @@ class AdversarialWarmupStep:
                 prob2 = torch.softmax(p2, dim=-1)
                 adv = _bce(d.model(prob2.permute(0, 3, 1, 2)), 1.0)  # fool D: "real"
                 loss = l2 + cfg.simt.lambda_seg * l1 + LAMBDA_ADV * adv
-            with self._span("backward"):
+            with span("backward", self.spans):
                 loss.backward()
-        with self._span("optimizer"):
+        with span("optimizer", self.spans):
             st.model_opt.step()
 
-        with self._span("discriminator"):
+        with span("discriminator", self.spans):
             d.opt.zero_grad(set_to_none=True)
             real = d.model(onehot.permute(0, 3, 1, 2))
             fake = d.model(prob2.detach().permute(0, 3, 1, 2))

@@ -37,8 +37,7 @@ rate comes from the host-side step count and the metrics come back as 0-d tensor
 
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,6 +49,7 @@ from ..ops.losses import mse_sum, volume_loss
 from ..ops.schedules import poly_lr
 from ..parallel.mesh import (Mesh, all_reduce_, gather_rows, global_batch_stats,
                              row_block, spatial_rows, sync_grads)
+from ..utils.spans import Events, span
 from .state import NTMState, SimTState, make_adam, make_model_optimizer
 
 
@@ -135,26 +135,16 @@ class SimTStep:
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
     end)`` CUDA events around its parts (inner_w, teacher, student_forward, backward,
-    grad_sync over several ranks, optimizer); read them after a synchronize.
+    grad_sync over several ranks, optimizer); read them after a synchronize. Under a
+    profiler each part is also a range ``simt_tpu_torch.inner_w``, ...
+    (``utils/spans.py``).
     """
 
     def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.mesh = mesh
         self.group = mesh.group if mesh is not None else None
-        self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-    @contextlib.contextmanager
-    def _span(self, name: str):
-        if self.spans is None:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.spans.append((name, start, end))
+        self.spans: Optional[Events] = None
 
     def __call__(self, st: SimTState, batch: Dict) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -173,7 +163,7 @@ class SimTStep:
             return ntm_lib.ntm_forward(p, st.class_dist, c, o)
 
         # ------- inner loop: W1/W2 against the current T1/T2 (:327-339) -------
-        with self._span("inner_w"):
+        with span("inner_w", self.spans):
             st.t1.param.grad = None  # optimizer_t.zero_grad(), once per iteration (:317)
             st.t2.param.grad = None
             inner_w_steps(st, c, o, s.inner_w_steps)
@@ -201,7 +191,7 @@ class SimTStep:
             height, band = image_rows(cfg, self.mesh, image)
 
             # ------- teacher posterior (:351-354) -------
-            with self._span("teacher"), torch.no_grad():
+            with span("teacher", self.spans), torch.no_grad():
                 if "teacher_prob8" in sub:
                     # Cached (train/teacher_cache.py): the frozen teacher is a pure
                     # function of (image, mirror), so it need not run every step.
@@ -213,7 +203,7 @@ class SimTStep:
                     teacher_prob8 = torch.softmax(teach2.float(), dim=1).permute(0, 2, 3, 1)
 
             # ------- student forward + composite loss (:370-424) -------
-            with self._span("student_forward"):
+            with span("student_forward", self.spans):
                 t1m, t2m = ntm(st.t1.param), ntm(st.t2.param)
                 with global_batch_stats(self.group), spatial_rows(self.mesh, height):
                     x1, x2 = st.model(x)
@@ -238,7 +228,7 @@ class SimTStep:
                 data = losses["place"] + loss_target  # this rank's share
                 loss = (data + s.lambda_convex * convex + s.lambda_volume * volume
                         + s.lambda_anchor * losses["anchor"])
-            with self._span("backward"):
+            with span("backward", self.spans):
                 if self.group is None:
                     (loss / iter_size).backward()
                 else:
@@ -271,11 +261,11 @@ class SimTStep:
                     metrics[k] = v
 
         if self.group is not None:
-            with self._span("grad_sync"):
+            with span("grad_sync", self.spans):
                 sync_grads([*st.model.parameters(), st.t1.param, st.t2.param], self.group)
                 for ntm_state, r, g0 in zip((st.t1, st.t2), rep, inner):
                     ntm_state.param.grad.add_(r if g0 is None else r + g0)
-        with self._span("optimizer"):
+        with span("optimizer", self.spans):
             st.model_opt.step()
             st.t1.opt.step()
             st.t2.opt.step()

@@ -30,8 +30,7 @@ The step never waits for the card: the metrics come back as 0-d tensors.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +40,7 @@ from ..ops.fused_losses import upsample_ce
 from ..ops.losses import cross_entropy_2d
 from ..ops.schedules import poly_lr
 from ..parallel.mesh import Mesh, all_reduce_, global_batch_stats, spatial_rows, sync_grads
+from ..utils.spans import Events, span
 from .simt import image_rows
 from .state import WarmupState, make_model_optimizer
 
@@ -70,26 +70,15 @@ class WarmupStep:
 
     ``spans``: None (default) or a list to which each call appends ``(name, start,
     end)`` CUDA events around its parts (forward, backward, grad_sync over several
-    ranks, optimizer); read them after a synchronize.
+    ranks, optimizer); read them after a synchronize. Under a profiler each part is
+    also a range ``simt_tpu_torch.forward``, ... (``utils/spans.py``).
     """
 
     def __init__(self, cfg, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.mesh = mesh
         self.group = mesh.group if mesh is not None else None
-        self.spans: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
-
-    @contextlib.contextmanager
-    def _span(self, name: str):
-        if self.spans is None:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.spans.append((name, start, end))
+        self.spans: Optional[Events] = None
 
     def _losses(self, model: nn.Module, image: torch.Tensor,
                 label: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,10 +114,10 @@ class WarmupStep:
             image = normalize_image(torch.as_tensor(sub["image"], device=dev),
                                     cfg.data.mean_bgr)
             label = normalize_label(torch.as_tensor(sub["label"], device=dev))
-            with self._span("forward"):
+            with span("forward", self.spans):
                 l1, l2 = self._losses(st.model, image, label)
                 loss = (l2 + cfg.simt.lambda_seg * l1) / iter_size
-            with self._span("backward"):
+            with span("backward", self.spans):
                 loss.backward()
             l1, l2 = l1.detach(), l2.detach()
             if self.group is not None:  # the global batch's values
@@ -139,9 +128,9 @@ class WarmupStep:
                 l1_sum = l1 / iter_size if l1_sum is None else l1_sum + l1 / iter_size
                 l2_sum = l2 / iter_size if l2_sum is None else l2_sum + l2 / iter_size
         if self.group is not None:
-            with self._span("grad_sync"):
+            with span("grad_sync", self.spans):
                 sync_grads(list(st.model.parameters()), self.group)
-        with self._span("optimizer"):
+        with span("optimizer", self.spans):
             st.model_opt.step()
         st.step += 1
         return {"loss_seg1": l1_sum, "loss_seg2": l2_sum, "lr": torch.tensor(lr)}
