@@ -49,7 +49,14 @@ Phases (any failure exits non-zero before the last line is printed):
      3x5 image, 36/9 channels off the vector width), each run twice and bitwise equal,
      every trunk geometry on the wgmma kernels and the off-vector case on the first
      port's; one fused forward + backward at layer3 under the profiler, which must show
-     no kernel but the package's own (and fills);
+     no kernel but the package's own (and fills); the fused eval-mode BatchNorm
+     (``bn_act``: BN -> ReLU, BN -> + residual -> ReLU, BN alone) at the trunk's shapes
+     (the stem, layers 1-4) of a batch of 16 at 512x1024 and of a batch of 8 at the
+     eval's 512x1024 and 640x1280, and on edge cases (channels off the powers of two, a
+     tensor smaller than one block, no affine, NaN and inf), each within 1 bf16 ulp of
+     its plain version, one device operation a call, and timed (the kernel by the
+     profiler, the rest by CUDA events) beside its bytes bound, its plain version and
+     ATen's BatchNorm + ReLU (+ add) (``library_ms``);
   3. small-input checks, float32 on the card against the CPU: the whole evaluation,
      three whole SimT steps at the golden geometry (C5+O3, layers (1,1,1,1), 32x64,
      inner_w_steps 3) and three warmup steps at the same geometry (closed set);
@@ -63,6 +70,10 @@ Phases (any failure exits non-zero before the last line is printed):
      ``tools/train_simt.py`` (full-width student and teacher with seeded random
      weights, batch 1, 512x1024 synthetic batches, bf16 autocast); the warmup train
      step of ``tools/train_warmup.py`` (full-width closed-set model, the same inputs).
+     Every path's launch counts hold ``bn_act`` with the other kernels: 104 a forward
+     of an eval-mode trunk on the card (the stem, bn1 / bn2 / bn3 of 33 bottlenecks, 4
+     downsamples; two forwards an evaluated image, one the SimT teacher a step, on the
+     whole image or on a rank's rows), none in training.
      Each train path: 2 warm-up steps, then 5 timed steps with CUDA-event times of
      their parts, then 3 profiled steps for the device busy share, then the same step
      with every conv2 on cuDNN (a yardstick the port never calls) timed in turns
@@ -220,7 +231,8 @@ from simt_tpu_torch.parallel import (fetch_rows, initialize_multihost,  # noqa: 
                                      make_mesh, replicate_state, row_block, shard_batch,
                                      spatial_rows)
 from simt_tpu_torch.ops.kernels import _build  # noqa: E402
-from simt_tpu_torch.ops.kernels import bottleneck, conv3x3, eval_fused, loss_fused  # noqa: E402
+from simt_tpu_torch.ops.kernels import (bn_act, bottleneck, conv3x3, eval_fused,  # noqa: E402
+                                         loss_fused)
 from simt_tpu_torch.tools import (bench, bench_fused_bottleneck, common,  # noqa: E402
                                   eval_variants, flops, planted_noise, profile_layer3,
                                   profile_model, profile_step, profile_trace,
@@ -433,9 +445,11 @@ def phase_main_path(tmp: str, model: torch.nn.Module):
     print(f"main path: evaluate(simt, two scales, {OUT_HW[0]}x{OUT_HW[1]}) over "
           f"{N_IMAGES} images: {seconds:.3f} s, {N_IMAGES / seconds:.3f} img/s, "
           f"mIoU {miou}")
-    # One B1 a image; two scales a image, one B4 forward for each of the 33 bottlenecks.
+    # One B1 a image; two scales a image, one B4 forward for each of the 33 bottlenecks
+    # and one fused BatchNorm for each of the trunk's 104.
     check_counts("eval", launches, {"multiscale_argmax_hist": N_IMAGES,
-                                    "conv3x3_fwd": 2 * N_CONV2 * N_IMAGES})
+                                    "conv3x3_fwd": 2 * N_CONV2 * N_IMAGES,
+                                    "bn_act": 2 * N_BN * N_IMAGES})
     check_wgmma("eval", variants)
     # One device operation an image for the head: every call adds into the one running
     # histogram (no fill, no add) with uint8 gt, and that call, replayed on the first
@@ -732,14 +746,14 @@ def phase_train_main_path(tmp: str) -> dict:
     want = TIMED_STEPS * cfg.optim.iter_size
     # One B2 and one B3 a sub-batch. Student and teacher forwards (33 each); the input
     # gradient and the weight gradient of the trained blocks only (layers 3-4: 26;
-    # layers 1-2 are frozen in this stage).
+    # layers 1-2 are frozen in this stage); the eval-mode teacher's 104 fused BatchNorms.
     return drive_train_path(
         "SimT", step, state, batches,
         lambda i, v: format_simt_line(i, cfg.num_steps, v)
         + f" loss = {v['loss']:.4f}",
         {"loss_core_fwd": want, "loss_core_bwd": want,
          "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * want,
-         "conv3x3_wgrad": N_CONV2_L34 * want})
+         "conv3x3_wgrad": N_CONV2_L34 * want, "bn_act": N_BN * want})
 
 
 # ---------------------------------------------------------------------------------
@@ -952,12 +966,14 @@ def loop_fixture(tmp: str) -> dict:
 
 def _loop_counts(steps: int, images: int, stage: str = "simt") -> dict:
     """The launches ``steps`` train steps and an evaluation of ``images`` make."""
-    if stage == "simt":  # two scales an image
+    if stage == "simt":  # two scales an image; the teacher's BatchNorms fused
         return {"loss_core_fwd": steps, "loss_core_bwd": steps,
                 "conv3x3_fwd": (2 * N_CONV2 + N_CONV2_L34) * steps + 2 * N_CONV2 * images,
-                "conv3x3_wgrad": N_CONV2_L34 * steps, "multiscale_argmax_hist": images}
+                "conv3x3_wgrad": N_CONV2_L34 * steps, "multiscale_argmax_hist": images,
+                "bn_act": N_BN * steps + 2 * N_BN * images}
     return {"conv3x3_fwd": 2 * N_CONV2 * steps + N_CONV2 * images,  # one scale
-            "conv3x3_wgrad": N_CONV2 * steps, "multiscale_argmax_hist": images}
+            "conv3x3_wgrad": N_CONV2 * steps, "multiscale_argmax_hist": images,
+            "bn_act": N_BN * images}
 
 
 def _snapshots(d: str) -> list:
@@ -1377,7 +1393,8 @@ def phase_aux_eval(tmp: str) -> dict:
     DeepLabv3 open-set, its 34 channels sliced to 19) over the main path's 4 synthetic
     2048x1024 images, after one warm-up pass; DeepLabv3 at batch 4. Launch counts held
     to each path's own: one B1 a batch into the running histogram; Res_Deeplab's 33
-    bottleneck conv2s on B4 at each scale; none for VGG and DeepLabv3 (cuDNN)."""
+    bottleneck conv2s on B4 and its 104 BatchNorms fused at each scale; none for VGG
+    and DeepLabv3 (cuDNN, ATen)."""
     paths = {"root": os.path.join(tmp, "full"),
              "val_txt": os.path.join(tmp, "full", "lists", "val.txt"),
              "gt_dir": os.path.join(tmp, "full", "label")}
@@ -1401,7 +1418,7 @@ def phase_aux_eval(tmp: str) -> dict:
         calls = N_IMAGES // batch
         want = {"multiscale_argmax_hist": calls}
         if arch == "deeplab_single":
-            want["conv3x3_fwd"] = 2 * N_CONV2 * N_IMAGES
+            want.update(conv3x3_fwd=2 * N_CONV2 * N_IMAGES, bn_act=2 * N_BN * N_IMAGES)
         print(f"main path: evaluate(simt, two scales) of {arch} (tools/test.py --model "
               f"{arch}), batch {batch}, over {N_IMAGES} 2048x1024 images: {seconds:.3f} s, "
               f"{N_IMAGES / seconds:.3f} img/s, mIoU {miou}, "
@@ -1548,7 +1565,8 @@ def phase_aux_teacher_cache(tmp: str, resident: dict) -> dict:
     CACHE_TURN steps, cached, uncached, uncached, cached (the uncached steps take the
     same loader batches without ``teacher_prob8``), with the steps' CUDA-event spans.
     A hit step's launches: B2 1, B3 1, B4 59 (the student's 33 forwards and 26 input
-    gradients) and B5 26; an uncached step's: the resident path's (B4 92)."""
+    gradients), B5 26 and no fused BatchNorm; an uncached step's: the resident path's
+    (B4 92, the teacher's 104 fused BatchNorms)."""
     cfg, state, step = simt_main_setup(tmp)
     paths = {"root": os.path.join(tmp, "pipeline"),
              "pseudo_lst": os.path.join(tmp, "pipeline", "lists", "pseudo.lst")}
@@ -1568,7 +1586,8 @@ def phase_aux_teacher_cache(tmp: str, resident: dict) -> dict:
               f"(worker start-up included): {cache.misses} misses, {cache.hits} hits, "
               f"{len(cache)} entries")
         per_step = {k: v // TIMED_STEPS for k, v in resident["launches"].items()}
-        hit_step = dict(per_step, conv3x3_fwd=per_step["conv3x3_fwd"] - N_CONV2)
+        hit_step = dict(per_step, conv3x3_fwd=per_step["conv3x3_fwd"] - N_CONV2,
+                        bn_act=per_step["bn_act"] - N_BN)
         turns = {"cached": [], "uncached": []}
         parts = {"cached": {}, "uncached": {}}
         for mode in ("cached", "uncached", "uncached", "cached"):
@@ -1637,7 +1656,8 @@ COUNTED = {"multiscale_argmax_hist": eval_fused.multiscale_argmax_hist,
            "conv3x3_fwd": conv3x3.conv3x3_fwd,
            "conv3x3_wgrad": conv3x3.conv3x3_wgrad,
            "bottleneck_fwd": bottleneck.bottleneck_fwd,
-           "bottleneck_bwd": bottleneck.bottleneck_bwd}
+           "bottleneck_bwd": bottleneck.bottleneck_bwd,
+           "bn_act": bn_act.bn_act}
 
 
 # The wrappers that count their launches by kernel variant as well.
@@ -1797,6 +1817,7 @@ def phase_loss_kernel_times(launches: dict, worst: dict) -> list:
 # ---------------------------------------------------------------------------------
 
 N_CONV2 = 33  # bottlenecks of ResNet-101: 3 + 4 + 23 + 3, one 3x3 conv each
+N_BN = 1 + 3 * N_CONV2 + 4  # BatchNorms a ResNet-101 forward: stem, 3 a block, 4 downsample
 N_CONV2_L34 = 26  # those of layers 3 and 4 (trained in the SimT stage)
 # (name, H, W, channels, dilation, blocks) of the four trunk stages at a 512x1024 crop.
 TRUNK = (("layer1", 129, 257, 64, 1, 3), ("layer2", 65, 129, 128, 1, 4),
@@ -2227,6 +2248,133 @@ def phase_bneck_kernels_vs_plain() -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------------
+# The fused eval-mode BatchNorm (bn_act): BN -> ReLU, BN -> + residual -> ReLU, BN alone
+# ---------------------------------------------------------------------------------
+
+# (case, batch, H, W, C, variant) at the main paths' shapes: the SimT teacher's batch of
+# 16 at 512x1024 (stem 256x512, layer1 129x257, layers 2-4 65x129) and the eval's batch
+# of 8 at both its scales, 512x1024 and 640x1280 (stem 320x640, layer1 161x321, layers
+# 2-4 81x161); bn1 / bn2 take the block's planes, bn3 and the downsample 4x (layer2's
+# first block strides 2 in conv1 and in its downsample, so all of its BatchNorms sit at
+# the smaller grid).
+BN_CASES = [(f"{tag}_{name}", b, h, w, c, v)
+            for tag, b, geo in (("b16", 16, ((256, 512), (129, 257), (65, 129))),
+                                ("eval512_b8", 8, ((256, 512), (129, 257), (65, 129))),
+                                ("eval640_b8", 8, ((320, 640), (161, 321), (81, 161))))
+            for name, (h, w), c, v in (
+                ("stem", geo[0], 64, "relu"),
+                ("layer1_bn1", geo[1], 64, "relu"), ("layer1_bn3", geo[1], 256, "add"),
+                ("layer1_downsample", geo[1], 256, "alone"),
+                ("layer2_bn1", geo[2], 128, "relu"), ("layer2_bn3", geo[2], 512, "add"),
+                ("layer2_downsample", geo[2], 512, "alone"),
+                ("layer3_bn1", geo[2], 256, "relu"), ("layer3_bn3", geo[2], 1024, "add"),
+                ("layer3_downsample", geo[2], 1024, "alone"),
+                ("layer4_bn1", geo[2], 512, "relu"), ("layer4_bn3", geo[2], 2048, "add"),
+                ("layer4_downsample", geo[2], 2048, "alone"))]
+# Off the main path: channels off the powers of two (a grid of a multiple of 3 blocks),
+# fewer vectors than one block's threads, BatchNorm without an affine, NaN and inf.
+BN_EDGE = [("edge_c24_odd", 3, 7, 13, 24, "add"), ("edge_tiny", 1, 1, 3, 16, "relu"),
+           ("edge_no_affine", 2, 9, 11, 64, "alone"), ("edge_nan_inf", 2, 5, 7, 32, "add")]
+
+
+def bn_inputs(b: int, h: int, w: int, c: int, variant: str, seed: int,
+              affine: bool = True) -> dict:
+    """Seeded ``bn_act`` arguments on the card: x and the residual N(0, 1) bf16
+    channels_last, running mean N(0, 0.25), variance U(0.5, 2), weight U(0.5, 1.5), bias
+    N(0, 0.04), eps 1e-5."""
+    g = torch.Generator(device=CUDA).manual_seed(seed)
+    act = dict(device=CUDA, generator=g)
+
+    def image():
+        return torch.randn((b, c, h, w), **act).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    return {"x": image(), "mean": torch.randn(c, **act) * 0.5,
+            "var": torch.rand(c, **act) * 1.5 + 0.5,
+            "weight": torch.rand(c, **act) + 0.5 if affine else None,
+            "bias": torch.randn(c, **act) * 0.2 if affine else None, "eps": 1e-5,
+            "residual": image() if variant == "add" else None,
+            "relu": variant != "alone"}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The most bf16 steps between ``a`` and ``b`` (bf16) at any element: the bit patterns
+    mapped onto a line that orders the values (+0 and -0 alike); a NaN in both counts
+    0, in one a huge distance."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    d = (line(a) - line(b)).abs()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    d = torch.where(na & nb, 0, torch.where(na ^ nb, 1 << 16, d))
+    return int(d.max())
+
+
+def library_bn(kw: dict):
+    """ATen's eval-mode BatchNorm, then the add and the ReLU: the port's composition."""
+    out = F.batch_norm(kw["x"], kw["mean"], kw["var"], kw["weight"], kw["bias"], False,
+                       0.0, kw["eps"])
+    if kw["residual"] is not None:
+        out = out + kw["residual"]
+    return torch.relu_(out) if kw["relu"] else out
+
+
+def phase_bn_act() -> list:
+    """``bn_act`` at the main paths' shapes and on edge cases against its plain version
+    (within 1 bf16 ulp, twice, one device operation a call), then timed at the main
+    paths' shapes: ``ms`` by CUDA events beside its bytes bound at the HBM rate, the
+    plain version and ATen's composition (``library_ms``). Returns the kernels line's
+    entries."""
+    fused = bn_act.bn_act
+    out, rows = [], []
+    for i, (name, b, h, w, c, v) in enumerate(BN_CASES + BN_EDGE):
+        kw = bn_inputs(b, h, w, c, v, SEED + i, affine=name != "edge_no_affine")
+        if name == "edge_nan_inf":
+            flat = kw["x"].permute(0, 2, 3, 1).view(-1)  # NHWC: its memory, in order
+            flat[::97] = float("nan")
+            flat[5::89] = float("inf")
+            flat[7::83] = float("-inf")
+        args = [kw[k] for k in ("x", "mean", "var", "weight", "bias", "eps")]
+        call = functools.partial(fused, *args, residual=kw["residual"], relu=kw["relu"])
+        got, again = call(), call()
+        want = bn_act.bn_act_plain(*args, residual=kw["residual"], relu=kw["relu"])
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, want)
+        same = torch.equal(got.view(torch.int16), again.view(torch.int16))
+        layout = got.is_contiguous(memory_format=torch.channels_last)
+        print(f"bn_act {name} ({b}x{c}x{h}x{w}, {v}): {ulps} bf16 ulp from the plain "
+              f"version, rerun {'equal' if same else 'DIFFERS'}")
+        if ulps > 1 or not same or not layout:
+            fail(f"bn_act {name}: {ulps} ulp from its plain version (limit 1), rerun "
+                 f"equal {same}, channels_last {layout}")
+        if name.startswith("edge"):
+            continue
+        t = time_launches({name: call}, "bn_fw_act")[name]
+        if t["launches"] != 1 or t["device_ops"] != 1:
+            fail(f"bn_act {name}: {t['device_ops']} device operations a call "
+                 f"({t['launches']} of its kernel), want its kernel alone")
+        nbytes = bn_act.work(kw["x"].numel(), kw["residual"] is not None)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        plain_ms = cuda_ms(lambda: bn_act.bn_act_plain(*args, residual=kw["residual"],
+                                                       relu=kw["relu"]), 5)
+        library_ms = cuda_ms(lambda: library_bn(kw), 20)
+        share = bound_ms / t["kernel_ms"]
+        rows.append(f"  {name}: kernel {t['kernel_ms']:.4f} ms (wrapper {t['ms']:.4f}, "
+                    f"host {t['host_us']:.1f} us), bound {bound_ms:.4f} ms ({share:.1%} of "
+                    f"it, {nbytes / t['kernel_ms'] / 1e6:.0f} GB/s), plain {plain_ms:.4f}, "
+                    f"library {library_ms:.4f} ms ({library_ms / t['kernel_ms']:.2f}x)")
+        out.append({"kernel": f"bn_act {name}", "shape": [b, c, h, w], "variant": v,
+                    "ms": t["ms"], "kernel_ms": t["kernel_ms"], "bound_ms": bound_ms,
+                    "bound_share": share, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "host_us": t["host_us"], "max_ulp": ulps})
+        del kw, args, call, got, again, want
+    print("bn_act times (H100 at 3.35 TB/s; kernel by the profiler):\n" + "\n".join(rows))
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_bneck_library_free() -> list:
     """Profiles one fused forward + backward at layer3 and fails if any CUDA kernel in
     it is not this package's own (names with ``bneck_``) or a fill."""
@@ -2421,7 +2569,7 @@ PAR_CONTINUOUS = {"SimT": ("loss_seg_p", "loss_seg_y", "convex", "volume"),
                   "warmup": ("loss_seg1", "loss_seg2")}
 PAR_COUNTS = {"SimT": {"loss_core_fwd": 1, "loss_core_bwd": 1,  # launches a step
                        "conv3x3_fwd": 2 * N_CONV2 + N_CONV2_L34,
-                       "conv3x3_wgrad": N_CONV2_L34},
+                       "conv3x3_wgrad": N_CONV2_L34, "bn_act": N_BN},
               "warmup": {"conv3x3_fwd": 2 * N_CONV2, "conv3x3_wgrad": N_CONV2}}
 
 
@@ -2719,10 +2867,13 @@ def phase_parallel(tmp: str, smi: str, ref: dict) -> dict:
             g = got[r][name]
             same = np.array_equal(g["hist"], ref["hist"])
             counts = g["launches"]
-            ok = ok and same and counts["multiscale_argmax_hist"] == b1
+            ok = (ok and same and counts["multiscale_argmax_hist"] == b1
+                  and counts["bn_act"] == 2 * N_BN * b1)
             print(f"parallel evaluate ({name}) rank {r}: histogram equal to one "
                   f"process's bit for bit: {same}; B1 launches {counts['multiscale_argmax_hist']}"
-                  f" (want {b1}), B6/B7 {counts['bottleneck_fwd']}/{counts['bottleneck_bwd']}")
+                  f" (want {b1}), fused BatchNorms {counts['bn_act']} (want "
+                  f"{2 * N_BN * b1}: two scales an image), B6/B7 "
+                  f"{counts['bottleneck_fwd']}/{counts['bottleneck_bwd']}")
     if not ok:
         fail("parallel: the ranks disagree with one process or with each other")
     return worst
@@ -3248,7 +3399,8 @@ def phase_eval_variants(smi: str) -> dict:
     calls = EVAL_VARIANT_CALLS + 1
     check_counts("eval variants", read_counts(),
                  {"multiscale_argmax_hist": 2 * calls,
-                  "conv3x3_fwd": 2 * N_CONV2 * calls * len(eval_variants.VARIANTS)})
+                  "conv3x3_fwd": 2 * N_CONV2 * calls * len(eval_variants.VARIANTS),
+                  "bn_act": 2 * N_BN * calls * len(eval_variants.VARIANTS)})
     check_wgmma("eval variants", read_variants())
     recs = res["records"]
     per_call = {v: r["b1_launches"] / calls for v, r in recs.items()}
@@ -3437,6 +3589,7 @@ def main() -> int:
     phase_conv_library_free()
     bneck_worst = phase_bneck_kernels_vs_plain()
     phase_bneck_library_free()
+    bn_entries = phase_bn_act()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_small_reference(tmp)
         phase_small_steps(tmp)
@@ -3494,7 +3647,7 @@ def main() -> int:
         phase_spatial(tmp, smi, ref, rng)
 
     print(json.dumps({"kernels": [entry, aux_entry, *loss_entries, *conv_entries,
-                                  *bneck_entries]}))
+                                  *bneck_entries, *bn_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

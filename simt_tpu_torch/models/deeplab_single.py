@@ -18,8 +18,8 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import gather_rows, row_sharding
-from .layers import (ClassifierModule, aspp_rows, frozen_bn, max_pool_ceil, res_stage,
-                     stage_rows, stem_rows)
+from .layers import (ClassifierModule, aspp_rows, bn_act, frozen_bn, max_pool_ceil,
+                     res_stage, stage_rows, stem_rows)
 
 
 class DeeplabSingle(nn.Module):
@@ -29,7 +29,6 @@ class DeeplabSingle(nn.Module):
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = frozen_bn(64)
-        self.relu = nn.ReLU(inplace=True)
         self.maxpool = max_pool_ceil()
         self.layer1 = res_stage(64, 64, layers[0], stride=1, dilation=1)
         self.layer2 = res_stage(256, 128, layers[1], stride=2, dilation=1)
@@ -42,7 +41,7 @@ class DeeplabSingle(nn.Module):
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             if rows is None:
-                x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+                x = self.maxpool(bn_act(self.bn1, self.conv1(x)))
                 x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
                 out = self.layer5(x)
             else:

@@ -12,6 +12,12 @@ Evaluation normalises with the running statistics; training with the batch stati
 updating the running ones as ``flax.linen.BatchNorm`` does (``BatchNorm2d``), over the
 global batch of the ranks inside ``parallel.global_batch_stats``.
 
+``bn_act`` runs a BatchNorm with its ReLU and the bottleneck's residual add. Where the
+BatchNorm normalises with its running statistics, no autograd graph is recorded and the
+activations are bfloat16 on a card (the frozen SimT teacher, every evaluation), that is
+one pass of the port's kernel (``ops/kernels/bn_act.py``) on channels_last copies where
+they are not; every other call (training, float32, the CPU) composes the modules.
+
 Inside ``parallel.spatial_rows`` the ResNet trunk runs on this rank's rows
 (``stem_rows``, ``stage_rows``, ``aspp_rows``): every conv and pool with
 a height extent fetches its window from the other ranks (``ops/conv.py``'s ``*_rows``)
@@ -28,6 +34,7 @@ from torch import nn
 
 from ..ops.conv import (conv2d_rows, dilated_conv3x3, dilated_conv3x3_rows, max_pool_rows,
                         no_rows, row_windows)
+from ..ops.kernels.bn_act import bn_act as fused_bn_act
 from ..parallel.mesh import RowSharding, all_reduce_sum, batch_stats_group, fetch_rows
 
 
@@ -117,6 +124,37 @@ def frozen_bn(channels: int) -> BatchNorm2d:
     return bn
 
 
+def takes_kernel(bn: nn.BatchNorm2d, x: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> bool:
+    """Whether ``bn_act`` runs ``bn`` (and its add and ReLU) as the fused kernel: ``bn``
+    normalises with its running statistics, ``x`` is bfloat16 on a card, and no autograd
+    graph is recorded for ``x``, the residual or ``bn``'s parameters."""
+    if bn.training or bn.running_mean is None or not x.is_cuda or x.dtype != torch.bfloat16:
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or (residual is not None and residual.requires_grad)
+        or any(p.requires_grad for p in (bn.weight, bn.bias) if p is not None)))
+
+
+def bn_act(bn: nn.BatchNorm2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+           relu: bool = True) -> torch.Tensor:
+    """``relu(bn(x) [+ residual])``, or ``bn(x)`` alone with ``relu=False``: where
+    ``takes_kernel`` holds, one pass of the fused kernel on ``x`` and the residual in the
+    kernel's channels_last layout (a no-op when they are in it already; the kernel
+    raises on anything else it cannot take), else the modules composed (the ReLU in
+    place, as ``nn.ReLU(inplace=True)``)."""
+    if takes_kernel(bn, x, residual):
+        cl = torch.channels_last
+        return fused_bn_act(x.contiguous(memory_format=cl), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, bn.eps, relu=relu,
+                            residual=None if residual is None
+                            else residual.contiguous(memory_format=cl))
+    out = bn(x)
+    if residual is not None:
+        out = out + residual
+    return torch.relu_(out) if relu else out
+
+
 def max_pool_ceil() -> nn.MaxPool2d:
     """The 3x3/2 pad-1 ceil-mode max pool after the stem (deeplab_multi.py:133)."""
     return nn.MaxPool2d(kernel_size=3, stride=2, padding=1, ceil_mode=True)
@@ -139,7 +177,6 @@ class Bottleneck(nn.Module):
         self.bn2 = frozen_bn(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = frozen_bn(planes * 4)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample: Optional[nn.Sequential] = None
         if downsample:
             self.downsample = nn.Sequential(
@@ -148,14 +185,15 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.relu(self.bn1(self.conv1(x)))
+        out = bn_act(self.bn1, self.conv1(x))
         # conv2 through the port's own conv op (B4/B5 on a card), as the JAX package
         # routes it through dilated_conv3x3_taps; ``conv2`` keeps the parameter.
         out = dilated_conv3x3(out, self.conv2.weight.to(out.dtype), self.dilation)
-        out = self.relu(self.bn2(out))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(out + residual)
+        out = self.conv3(bn_act(self.bn2, out))
+        residual = x
+        if self.downsample is not None:
+            residual = bn_act(self.downsample[1], self.downsample[0](x), relu=False)
+        return bn_act(self.bn3, out, residual)
 
     def forward_rows(self, x: torch.Tensor, rows: RowSharding,
                      height: int) -> Tuple[torch.Tensor, int]:
@@ -164,16 +202,16 @@ class Bottleneck(nn.Module):
         ``downsample`` of layer2's first block and the dilated 3x3 fetch their windows."""
         s = self.conv1.stride[0]
         out, h = conv2d_rows(x, self.conv1.weight, None, rows, height, stride=s)
-        out = self.relu(self.bn1(out))
+        out = bn_act(self.bn1, out)
         out = dilated_conv3x3_rows(out, self.conv2.weight.to(out.dtype), self.dilation,
                                    rows, h)
-        out = self.relu(self.bn2(out))
-        out = self.bn3(conv2d_rows(out, self.conv3.weight, None, rows, h)[0])
+        out = conv2d_rows(bn_act(self.bn2, out), self.conv3.weight, None, rows, h)[0]
         residual = x
         if self.downsample is not None:
-            residual = self.downsample[1](conv2d_rows(x, self.downsample[0].weight, None,
-                                                      rows, height, stride=s)[0])
-        return self.relu(out + residual), h
+            residual = bn_act(self.downsample[1],
+                              conv2d_rows(x, self.downsample[0].weight, None, rows, height,
+                                          stride=s)[0], relu=False)
+        return bn_act(self.bn3, out, residual), h
 
 
 def res_stage(inplanes: int, planes: int, blocks: int, *, stride: int,
@@ -250,7 +288,7 @@ def stem_rows(model: nn.Module, x: torch.Tensor,
     c = model.conv1
     x, h = conv2d_rows(x, c.weight, c.bias, rows, rows.height, stride=c.stride[0],
                        padding=c.padding[0])
-    return max_pool_rows(model.relu(model.bn1(x)), rows, h)
+    return max_pool_rows(bn_act(model.bn1, x), rows, h)
 
 
 def stage_rows(stage: nn.Sequential, x: torch.Tensor, rows: RowSharding,

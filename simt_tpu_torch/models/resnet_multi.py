@@ -28,8 +28,8 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import RowSharding, gather_rows, row_sharding
-from .layers import (ClassifierModule, aspp_rows, frozen_bn, max_pool_ceil, res_stage,
-                     stage_rows, stem_rows)
+from .layers import (ClassifierModule, aspp_rows, bn_act, frozen_bn, max_pool_ceil,
+                     res_stage, stage_rows, stem_rows)
 
 
 class ResNetMulti(nn.Module):
@@ -41,7 +41,6 @@ class ResNetMulti(nn.Module):
         self.openset = openset
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = frozen_bn(64)
-        self.relu = nn.ReLU(inplace=True)
         self.maxpool = max_pool_ceil()
         self.layer1 = res_stage(64, 64, layers[0], stride=1, dilation=1)
         self.layer2 = res_stage(256, 128, layers[1], stride=2, dilation=1)
@@ -68,7 +67,7 @@ class ResNetMulti(nn.Module):
             return self._forward_rows(x, rows)
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            x = self.maxpool(bn_act(self.bn1, self.conv1(x)))
             x = self.layer3(self.layer2(self.layer1(x)))
             x1 = self._head(x, self.layer5, self.layer5_1)
             x = self.layer4(x)

@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(
     "build", "kernels",
 )
 SOURCES: Dict[str, str] = {"eval_fused": "eval_fused.cu", "loss_fused": "loss_fused.cu",
-                           "conv3x3": "conv3x3.cu", "bottleneck": "bottleneck.cu"}
+                           "conv3x3": "conv3x3.cu", "bottleneck": "bottleneck.cu",
+                           "bn_act": "bn_act.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nvcc compiles ``build`` has started in this process (a library already built starts

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..ops.interp import interp_taps
+from ..ops.kernels.fma import fma32
 from ..ops.metrics import fast_hist
 from .timing import busy_ms, time_launches
 from .bench_fused_bottleneck import _HERE, package
@@ -126,21 +127,6 @@ def make_maps(names: Sequence[str], seed: int = 0) -> dict:
         else:
             maps[name] = head_inputs(np.random.default_rng(seed), gt=name)
     return maps
-
-
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn``: the product is exact in
-    float64, the sum is rounded to odd there (TwoSum's error says which way), and the
-    cast to float32 then rounds to nearest even as one rounding would."""
-    a, b, c = a.double(), b.double(), c.double()
-    p = a * b
-    s = p + c
-    bv = s - p
-    e = (p - (s - bv)) + (c - bv)
-    bits = s.view(torch.int64)
-    to_odd = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
-    step = torch.where((e > 0) == (s > 0), 1, -1)
-    return torch.where(to_odd, (bits + step).view(torch.float64), s).float()
 
 
 def _taps(n_in: int, n_out: int, device) -> tuple:

@@ -31,6 +31,7 @@ import torch
 from ..data.synthetic import synthetic_batch
 from ..device import resolve_device
 from ..models import ResNetMulti, init_weights
+from ..models.layers import bn_act
 from .bench import RESNET101, TRAIN_HW, dtypes
 from .profile_step import fmt, geometry_args, ints
 from .timing import card, time_rows
@@ -54,7 +55,7 @@ def heads(known, open_):
 def stage_fns(model: ResNetMulti) -> dict:
     """{stage: (module holding its parameters, its forward)}."""
     def stem1(x):
-        return model.layer1(model.maxpool(model.relu(model.bn1(model.conv1(x)))))
+        return model.layer1(model.maxpool(bn_act(model.bn1, model.conv1(x))))
 
     stem = torch.nn.ModuleDict({"conv1": model.conv1, "bn1": model.bn1,
                                 "layer1": model.layer1})
